@@ -1,0 +1,123 @@
+"""``search`` on a torch device: single-end reads streamed against a
+one-block DB.
+
+Port of kmcp_tpu/commands/search.py:74 ``run_search`` for the streaming
+path.  Searches the slice does not cover raise ``NotImplementedError``
+naming the ROADMAP item that will add them; nothing falls back to another
+engine.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import sys
+import time
+
+import torch
+
+from kmcp_tpu.commands.search import iter_queries
+from kmcp_tpu.index.format import find_db_dirs
+from kmcp_tpu.search.engine import SearchEngine, SearchOptions
+from kmcp_tpu.search.tsv import HEADER, write_stats
+from kmcp_tpu.seqio.fastx import xopen
+
+from ..search.stream import TorchStreamSearcher, unsupported
+
+
+def resolve_device(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} requested but torch sees no CUDA device"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r} (cuda or cpu)")
+    return dev
+
+
+def run_search(
+    db_dir: str,
+    files: list[str] | None = None,
+    read1: str | None = None,
+    read2: str | None = None,
+    out_file: str = "-",
+    opt: SearchOptions | None = None,
+    whole_file: bool = False,
+    use_filename: bool = False,
+    query_id: str = "",
+    no_header_row: bool = False,
+    device="cuda",
+    verbose: bool = True,
+    stats: dict | None = None,
+) -> tuple[int, int]:
+    """Search reads against ``db_dir`` on ``device``; returns (total,
+    matched).  ``stats``, when given, receives the streamer's
+    ``slow_rows`` and ``retries`` and the DB's Bloom ``rows`` and row
+    ``words``."""
+    # the object engine serves only reads over the dedup threshold, and
+    # always with the numpy counter
+    opt = dataclasses.replace(opt or SearchOptions(), backend="numpy",
+                              paired_fpr_buf=False)
+    if read1 and read2:
+        raise NotImplementedError(
+            "paired reads need paired streaming (ROADMAP A6)"
+        )
+    if whole_file:
+        raise NotImplementedError(
+            "whole-file queries (-g) need the object-engine counter "
+            "(ROADMAP A8)"
+        )
+    dev = resolve_device(device)
+    db_dirs = find_db_dirs(db_dir)
+    if not db_dirs:
+        raise SystemExit(f"kmcp-tpu-torch search: invalid database: {db_dir}")
+    engine = SearchEngine(db_dirs, opt)
+    reason = unsupported(engine)
+    if reason:
+        raise NotImplementedError(reason)
+    if opt.load_default_name_map and not opt.name_map:
+        nm_path = os.path.join(db_dirs[0], "name_mapping.tsv")
+        if os.path.isfile(nm_path):
+            with open(nm_path) as f:
+                opt.name_map = dict(
+                    line.rstrip("\n").split("\t", 1)
+                    for line in f if line.strip()
+                )
+    if verbose:
+        print(
+            "[search] main parameters:\n"
+            f"  database: {db_dir}\n"
+            f"  device: {dev}, min-query-len: {opt.min_query_len}, "
+            f"min-kmers: {opt.min_kmers}, query-cov: {opt.min_query_cov}, "
+            f"target-cov: {opt.min_target_cov}, max-fpr: {opt.max_fpr}",
+            file=sys.stderr,
+        )
+    t0 = time.time()
+    streamer = TorchStreamSearcher(engine, dev)
+    k_max = max(engine.dbs[0].info.ks)
+    out = sys.stdout if out_file == "-" else xopen(out_file, "wt")
+    try:
+        if not no_header_row:
+            out.write(HEADER)
+        total, matched = streamer.run(
+            iter_queries(files or [], read1, read2, False, use_filename,
+                         query_id, k_max),
+            out,
+        )
+        write_stats(out, total, matched)
+    finally:
+        if out is not sys.stdout:
+            out.close()
+    if verbose:
+        el = time.time() - t0
+        print(
+            f"[search] processed {total} queries at "
+            f"{total / el if el > 0 else 0:.1f} queries/s on {dev}; "
+            f"{matched / total * 100 if total else 0.0:.4f}% matched",
+            file=sys.stderr,
+        )
+    if stats is not None:
+        stats.update(slow_rows=streamer.slow_rows, retries=streamer.retries,
+                     rows=streamer.dev.total_rows, words=streamer.dev.w)
+    return total, matched

@@ -1,0 +1,116 @@
+"""Build and load the port's CUDA kernels: nvcc -> shared library -> ctypes.
+
+The counterpart of the native C++ loader (kmcp_tpu/kmer/native.py:29-53,
+``_build``/``get_lib``) for the CUDA sources under ``kmcp_tpu_torch/csrc/``.
+At first use every ``csrc/*.cu`` file is compiled by ``nvcc`` for
+``sm_90a`` into one shared library with a plain C interface, under
+``kmcp_tpu_torch/build/<source hash>/``; a change to any source changes the
+hash and so triggers a rebuild.  Nothing includes PyTorch's headers, so a
+build takes seconds.  A missing ``nvcc`` or a failed build raises with the
+compiler's output; there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "build")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_lock = threading.Lock()
+_lib = None
+# Wall seconds of the build this process ran (None: the library was cached)
+# and nvcc's output for it (ptxas register / spill report).
+build_seconds: float | None = None
+build_log = ""
+
+
+def sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256()
+    for path in sources():
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def find_nvcc() -> str:
+    for env in ("CUDA_HOME", "CUDA_PATH"):
+        root = os.environ.get(env)
+        if root and os.path.isfile(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"  # the toolkit's standard prefix
+    if os.path.isfile(default):
+        return default
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME or put nvcc on PATH): the CUDA "
+        "kernels of kmcp_tpu_torch are built from source at first use"
+    )
+
+
+def library_path() -> str:
+    return os.path.join(BUILD_DIR, source_hash(), "libkmcp_cuda.so")
+
+
+def build() -> str:
+    """Compile the sources unless the library for their hash exists;
+    returns its path."""
+    global build_seconds, build_log
+    so = library_path()
+    if os.path.isfile(so):
+        return so
+    os.makedirs(os.path.dirname(so), exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()]
+    t0 = time.time()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed (exit {res.returncode}): {' '.join(cmd)}\n"
+            f"{res.stderr}{res.stdout}"
+        )
+    os.replace(tmp, so)  # atomic: concurrent builders never see a partial file
+    build_seconds = time.time() - t0
+    build_log = res.stderr + res.stdout
+    return so
+
+
+def get_lib() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            vp, i32 = ctypes.c_void_p, ctypes.c_int
+            i64, u64 = ctypes.c_longlong, ctypes.c_ulonglong
+            lib.kmcp_hash_loc.argtypes = [
+                vp, i32, i32, i32, i64, u64, i32, u64, u64, u64, u64,
+                vp, vp, vp,
+            ]
+            lib.kmcp_hash_loc.restype = i32
+            lib.kmcp_count_mask.argtypes = [
+                vp, i32, vp, i32, i32, i32, vp, vp, vp, vp, vp,
+            ]
+            lib.kmcp_count_mask.restype = i32
+            _lib = lib
+    return _lib
