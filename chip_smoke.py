@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (kmcp_tpu_torch) on one GPU.
 
-Drives the port's main path, single-end streaming search over a
-single-block DB, through the entry points a user calls (``python -m
-kmcp_tpu_torch compute / index`` to build the DBs, then
+Drives the port's main paths, single-end streaming search over a
+single-block DB and over a multi-block ``--block-screen --uniform-sigs`` DB
+(the two-pass screened search), through the entry points a user calls
+(``python -m kmcp_tpu_torch compute / index`` to build the DBs, then
 ``kmcp_tpu_torch.commands.search.run_search``).  Every input is made here
 from fixed seeds; nothing outside the checkout is read, and nothing of JAX
 or of the JAX package is imported here.
@@ -11,9 +12,15 @@ or of the JAX package is imported here.
 Phases (each prints one status line; any failure raises, exit non-zero):
   1. device: a CUDA card, its name and power limit (nvidia-smi);
   2. build: nvcc builds the CUDA kernels from kmcp_tpu_torch/csrc/;
-  3. kernels: K1' hash_loc and K2' count_mask on the card at the main
-     path's shapes, exactly equal to their plain PyTorch versions; CUDA
-     event times, median of 5 after a warm-up;
+  3. kernels: K1' hash_loc (also with the screen plane) and K2'
+     count_mask on the card at the main paths' shapes, and the screened
+     pass-2 kernels K5' pair_count and K6' group_count at 32 and 128
+     blocks of 4,096 targets (random bits, 3,578 rows per block, 20,480 and
+     36,864 pairs of a 16,384-read batch), each exactly equal to its plain
+     PyTorch version (K6' also to K5''s counts); CUDA event times, median
+     of 5 after a warm-up, of the kernels, the plain versions and each
+     pass-2 route as the tail runs it (K5' + compaction; U build + K6' +
+     floors + compaction);
   4. main path: a 131,072-target single-block wide DB (2,048 synthetic
      genomes x 64 chunks, k=21, one hash, FPR 0.3; the recipe of
      tools/bench_large_t.py) and 65,536 150 bp reads (40 source genomes,
@@ -26,7 +33,20 @@ Phases (each prints one status line; any failure raises, exit non-zero):
   5. the same on a narrow-row DB (150 targets of 680 kb, W = 5 words,
      three hashes, about 1.85 M Bloom rows: the demo DB's shape), held
      byte for byte against the port's ``--device cpu`` run, which the CPU
-     tests hold byte-identical to ``kmcp_tpu search --backend host``.
+     tests hold byte-identical to ``kmcp_tpu search --backend host``;
+  6. the screened main path: phase 4's 2,048 x 64 chunks indexed again with
+     ``--tpu-native --block-screen --uniform-sigs`` (32 blocks of 4,096
+     targets with union screens), the same 65,536 reads searched on the
+     card with pass2="gemm" and pass2="pair"; both TSVs byte-identical to
+     the port's ``--device cpu`` run (pass2="pair": the plain pair count
+     is cheap on the CPU, as only active pairs are counted), every source
+     read best-hits its genome, hash_loc and count_mask (pass 1) launch in
+     both runs, group_count only in the first and pair_count only in the
+     second, and no read takes the object engine; then a rerun of each
+     with stage timers (a synchronised host clock) gives the time by
+     stage.
+Every main-path run sets all four kernels' launch counts to 0 just before
+it and reads them just after.
 Then one JSON line of kernel results, the card's name and power limit, and
 the last line ``{"ok": true, "device": {...}}``.
 
@@ -53,6 +73,9 @@ READ_LEN = 150
 N_READS = 65_536
 WIDE_GENOMES, WIDE_CHUNKS = 2048, 64  # 131,072 targets of ~1 kb
 NARROW_GENOMES, NARROW_CHUNKS = 15, 10  # 150 targets of 680 kb
+SCREEN_SIGS = 1 << 24  # a union screen's rows in phase 3 (phase 6 prints its DB's)
+PASS2_CASES = ((32, 20_480), (128, 36_864))  # (blocks, pairs) in phase 3
+BLOCK_TARGETS = 4096  # targets per block of phase 6's screened DB
 
 
 def log(msg: str):
@@ -174,6 +197,119 @@ def phase_kernels(torch, dev) -> dict:
             f"plain {ms_p:.3f} ms")
         res["count_mask"].append((label, err, ms, ms_p))
         del bits, counts, mask, counts_p, mask_p
+
+    # the screened path's hash: the block-row plane and the union screen
+    # plane (h = 1) in one launch
+    S, N = 3578, SCREEN_SIGS
+    got = hash_loc(reads, K, S, full, 1, screen_sigs=N)
+    want = hash_loc_plain(reads, K, S, full, 1, screen_sigs=N)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(torch, g, w) for g, w in zip(got, want))
+    if err:
+        raise AssertionError(f"hash_loc screen plane: max abs err {err}")
+    ms = time_ms(torch, lambda: hash_loc(reads, K, S, full, 1, screen_sigs=N))
+    ms_p = time_ms(torch, lambda: hash_loc_plain(reads, K, S, full, 1,
+                                                 screen_sigs=N))
+    label = f"screen S={S} N={N} h=1"
+    log(f"phase 3 hash_loc [{label}] B={B} lmax={lmax}: exact (max abs err "
+        f"0); kernel {ms:.3f} ms, plain {ms_p:.3f} ms")
+    res["hash_loc"].append((label, err, ms, ms_p))
+    return res
+
+
+def phase_pass2(torch, dev) -> dict:
+    """Phase 3, screened pass 2: K5' pair_count and K6' group_count against
+    their plain versions at 32 and 128 blocks of 4,096 targets (s_block =
+    3,578 rows of random bits, 140 windows per read, 5% of them invalid),
+    on 20,480 and 36,864 read-major pairs of a 16,384-read batch (bits of
+    density 1/4, so a pair's counts sit near 33); K6' is
+    fed the block-sorted tiles and U the tail builds, and must also equal
+    K5''s counts.  Each pass-2 route is also timed whole, as the tail runs
+    it."""
+    from kmcp_tpu_torch.search import screen
+    from kmcp_tpu_torch.search.device_step import FLOOR_NEVER
+    from kmcp_tpu_torch.search.group_count import (
+        TILE, block_tiles, build_u, gemm_slabs, group_count,
+        group_count_plain, s_pad_for,
+    )
+    from kmcp_tpu_torch.search.pair_count import pair_count, pair_count_plain
+
+    rng = np.random.default_rng(2025)
+    B, s_block, W = 16_384, 3_578, 128
+    Kw = 160 - K + 1  # windows of a read in the batch's lmax = 160 rows
+    S_pad = s_pad_for(s_block)
+    res = {"pair_count": [], "group_count": []}
+    for nb, P in PASS2_CASES:
+        as_dev = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        bits = as_dev(random_bits(rng, nb * s_block, W, 1, 0).view(np.int32))
+        loc_np = rng.integers(0, s_block, (B, Kw)).astype(np.int32)
+        loc_np[rng.random((B, Kw)) < 0.05] = s_block  # invalid windows
+        loc = as_dev(loc_np)
+        flat = np.sort(rng.choice(B * nb, size=P, replace=False))
+        pb = as_dev((flat // nb).astype(np.int32))
+        pg = as_dev((flat % nb).astype(np.int32))
+        # floors as the main path sets them (a 150 bp read needs ~72 of
+        # its windows); one read in 500 gets a low floor, so that about
+        # half its pairs' targets pass and the mask is not empty
+        cthr_np = np.full(B, 72, dtype=np.int32)
+        cthr_np[rng.random(B) < 0.002] = 33
+        cthr = as_dev(cthr_np)
+        thr_np = rng.integers(1, 10, (nb, 32 * W)).astype(np.int32)
+        thr_np[:, -7:] = FLOOR_NEVER  # padding lanes
+        thr = as_dev(thr_np)
+        label = f"nb={nb} P={P}"
+
+        args = (bits, loc, pb, pg, cthr, thr)
+        counts, mask = pair_count(*args)
+        counts_p, mask_p = pair_count_plain(*args)
+        torch.cuda.synchronize()
+        err = max(max_abs_err(torch, counts, counts_p),
+                  max_abs_err(torch, mask, mask_p))
+        if err:
+            raise AssertionError(f"pair_count {label}: max abs err {err}")
+        n_set = int(torch.count_nonzero(mask))
+        del counts_p, mask_p
+        ms = time_ms(torch, lambda: pair_count(*args, rows_checked=True))
+        ms_p = time_ms(torch, lambda: pair_count_plain(*args))
+        chunk = screen.pass2_chunk(32 * W)
+        route = time_ms(torch, lambda: screen._pass2_pair(
+            bits, loc, pb, pg, cthr, thr, chunk))
+        log(f"phase 3 pair_count [{label}] s_block={s_block} W={W} K={Kw}: "
+            f"exact (max abs err 0, {n_set} mask words set); kernel "
+            f"{ms:.3f} ms, plain {ms_p:.3f} ms; route (K5' + compaction) "
+            f"{route:.3f} ms")
+        res["pair_count"].append((label, err, ms, ms_p, route))
+
+        bits01 = gemm_slabs(bits, nb, s_block, S_pad)
+        slot, blk = block_tiles(pg, nb)
+        rows = torch.full((TILE * blk.shape[0],), B, dtype=torch.int64,
+                          device=dev)
+        rows[slot] = pb.long()
+        loc_ext = torch.cat([loc, loc.new_full((1, Kw), s_block)])
+        u = build_u(loc_ext[rows], S_pad)
+        got = group_count(bits01, u, blk)
+        want = group_count_plain(bits01, u, blk)
+        torch.cuda.synchronize()
+        err6 = max(max_abs_err(torch, got, want),
+                   max_abs_err(torch, got[slot], counts))
+        if err6:
+            raise AssertionError(f"group_count {label}: max abs err {err6}")
+        del want, counts, mask
+        ms6 = time_ms(torch, lambda: group_count(bits01, u, blk))
+        ms6_p = time_ms(torch, lambda: group_count_plain(bits01, u, blk))
+        ms_u = time_ms(torch, lambda: build_u(loc_ext[rows], S_pad))
+        chunk = screen.pass2_chunk(32 * W, S_pad)
+        route6 = time_ms(torch, lambda: screen._pass2_gemm(
+            bits01, loc, pb, pg, cthr, thr, s_block, chunk))
+        flops = 2.0 * u.shape[0] * S_pad * 32 * W
+        log(f"phase 3 group_count [{label}] P_pad={u.shape[0]} "
+            f"S_pad={S_pad} T={32 * W}: exact (max abs err 0 vs plain and "
+            f"vs pair_count); kernel {ms6:.3f} ms ({flops / ms6 / 1e9:.1f} "
+            f"TFLOP/s), plain {ms6_p:.3f} ms; U build {ms_u:.3f} ms; route "
+            f"(U build + K6' + floors + compaction) {route6:.3f} ms")
+        res["group_count"].append((label, err6, ms6, ms6_p, route6))
+        del bits, bits01, u, got, loc_ext, rows
+        torch.cuda.empty_cache()
     return res
 
 
@@ -254,6 +390,29 @@ def check_best_hits(path: str, n_source: int) -> None:
         )
 
 
+def kernel_wrappers() -> dict:
+    """The four kernel wrappers by name; each counts its own launches."""
+    from kmcp_tpu_torch.search.count import count_mask
+    from kmcp_tpu_torch.search.group_count import group_count
+    from kmcp_tpu_torch.search.hash_loc import hash_loc
+    from kmcp_tpu_torch.search.pair_count import pair_count
+
+    return {"hash_loc": hash_loc, "count_mask": count_mask,
+            "pair_count": pair_count, "group_count": group_count}
+
+
+def counted_run(fn, *args, **kwargs):
+    """fn(*args, **kwargs) with every kernel's launch count set to 0 just
+    before it -> (its result, the launches it made, its wall seconds)."""
+    kernels = kernel_wrappers()
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.time()
+    out = fn(*args, **kwargs)
+    wall = time.time() - t0
+    return out, {n: k.launches for n, k in kernels.items()}, wall
+
+
 @contextlib.contextmanager
 def plain_kernels():
     """Bind the main path's two kernel calls to their plain PyTorch
@@ -280,31 +439,25 @@ def phase_main_path(torch, dev, label: str, db: str, reads: str,
     ``plain`` (the same path on ``dev`` with the plain versions) or
     ``cpu`` (the port's CPU run).  The TSVs must be byte-identical."""
     from kmcp_tpu_torch.commands.search import run_search
-    from kmcp_tpu_torch.search.count import count_mask
-    from kmcp_tpu_torch.search.hash_loc import hash_loc
 
     out_dev = os.path.join(SCRATCH, f"{label}.{dev.type}.tsv")
     out_ref = os.path.join(SCRATCH, f"{label}.{reference}.tsv")
     stats: dict = {}
-    hash_loc.launches = count_mask.launches = 0
-    t0 = time.time()
-    total, matched = run_search(db, [reads], out_file=out_dev, device=dev,
-                                verbose=False, stats=stats)
-    dev_s = time.time() - t0
-    launches = {"hash_loc": hash_loc.launches,
-                "count_mask": count_mask.launches}
+    (total, matched), launches, dev_s = counted_run(
+        run_search, db, [reads], out_file=out_dev, device=dev, verbose=False,
+        stats=stats)
 
     ref_stats: dict = {}
-    t0 = time.time()
     if reference == "plain":
         with plain_kernels():
-            ref = run_search(db, [reads], out_file=out_ref, device=dev,
-                             verbose=False, stats=ref_stats)
+            ref, ref_launches, ref_s = counted_run(
+                run_search, db, [reads], out_file=out_ref, device=dev,
+                verbose=False, stats=ref_stats)
     else:
-        ref = run_search(db, [reads], out_file=out_ref, device="cpu",
-                         verbose=False, stats=ref_stats)
-    ref_s = time.time() - t0
-    if (hash_loc.launches, count_mask.launches) != tuple(launches.values()):
+        ref, ref_launches, ref_s = counted_run(
+            run_search, db, [reads], out_file=out_ref, device="cpu",
+            verbose=False, stats=ref_stats)
+    if any(ref_launches.values()):
         raise AssertionError(f"{label}: the reference run launched a kernel")
 
     with open(out_ref, "rb") as f:
@@ -316,9 +469,12 @@ def phase_main_path(torch, dev, label: str, db: str, reads: str,
     if (total, matched) != ref or total != N_READS:
         raise AssertionError(f"{label}: totals {total, matched} vs {ref}")
     check_best_hits(out_dev, n_source)
-    for name, n in launches.items():
-        if dev.type == "cuda" and n <= 0:  # CPU tensors take the plain path
-            raise AssertionError(f"{label}: kernel {name} never launched")
+    # the dense one-block path runs K1' and K2' (CPU tensors take the plain
+    # versions), and neither pass-2 kernel
+    launched = min(launches["hash_loc"], launches["count_mask"]) > 0
+    if ((dev.type == "cuda" and not launched) or launches["pair_count"]
+            or launches["group_count"]):
+        raise AssertionError(f"{label}: launches {launches}")
     if stats["slow_rows"]:
         raise AssertionError(f"{label}: {stats['slow_rows']} reads took the "
                              "object engine")
@@ -334,7 +490,137 @@ def phase_main_path(torch, dev, label: str, db: str, reads: str,
             "retries": stats["retries"]}
 
 
+@contextlib.contextmanager
+def stage_timers(torch, acc: dict):
+    """Time the screened search's stages on a synchronised host clock, by
+    wrapping the functions it calls: the DB set-up (host arrays, of which
+    the union screens' packing, then the upload; the engine's open and
+    check before it, and the streamer set-up around it), the device hash,
+    pass 1, the U build, the pass-2 kernels, the whole pass-2 routes,
+    packing with its D2H copy, and the TSV writer; seconds accumulate in
+    ``acc``."""
+    from kmcp_tpu_torch.commands import search as command
+    from kmcp_tpu_torch.search import device, screen
+    from kmcp_tpu_torch.search.stream import TorchStreamSearcher
+
+    targets = [(command, "SearchEngine", "engine_open"),
+               (command, "unsupported", "engine_check"),
+               (command, "TorchStreamSearcher", "streamer_setup"),
+               (device, "numpy_state", "db_state"),
+               (device, "build_packed_union", "db_state_union_pack"),
+               (device.TorchDeviceDB, "_init", "db_upload"),
+               (device, "hash_loc", "hash"), (screen, "active_pairs", "pass1"),
+               (screen, "build_u", "u_build"),
+               (screen, "pair_count", "pass2_kernel"),
+               (screen, "group_count", "pass2_kernel"),
+               (screen, "_pass2_pair", "pass2_route"),
+               (screen, "_pass2_gemm", "pass2_route"),
+               (screen, "pack_result_split", "pack_d2h"),
+               (TorchStreamSearcher, "_write_native", "writer")]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in targets]
+
+    def timed(fn, key):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            acc[key] = acc.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return run
+
+    for (obj, name, key), (_, _, fn) in zip(targets, saved):
+        setattr(obj, name, timed(fn, key))
+    try:
+        yield
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+
+
+def phase_screened(torch, dev, ks: str, reads: str, n_source: int) -> dict:
+    """Phase 6: the screened main path on a 32-block DB of phase 4's
+    chunks, pass2="gemm" and "pair" on the card against the port's CPU run
+    (pass2="pair"); then a stage-timed run of each route."""
+    from kmcp_tpu_torch.cli import main as cli
+    from kmcp_tpu_torch.commands.search import run_search
+
+    db = os.path.join(SCRATCH, "screened", "db")
+    t0 = time.time()
+    if cli(["-q", "index", "-I", ks, "-O", db, "-n", "1", "-f", "0.3",
+            "--tpu-native", "--native-block-targets", str(BLOCK_TARGETS),
+            "--block-screen", "--uniform-sigs", "--force"]):
+        raise RuntimeError("index of the screened DB failed")
+    index_s = time.time() - t0
+
+    def search(pass2: str, device, tag: str) -> dict:
+        out = os.path.join(SCRATCH, f"screened.{tag}.tsv")
+        stats: dict = {}
+        totals, launches, wall = counted_run(
+            run_search, db, [reads], out_file=out, device=device,
+            verbose=False, stats=stats, pass2=pass2)
+        with open(out, "rb") as f:
+            tsv = f.read()
+        return {"tsv": tsv, "out": out, "stats": stats, "wall": wall,
+                "totals": totals, "launches": launches}
+
+    runs = {p: search(p, dev, f"{dev.type}.{p}") for p in ("gemm", "pair")}
+    ref = search("pair", "cpu", "cpu.pair")
+    if any(ref["launches"].values()):
+        raise AssertionError("phase 6: the CPU run launched a kernel")
+    st = ref["stats"]
+    if st["n_blocks"] < 2 or st["pass2"] != "pair":
+        raise AssertionError(f"phase 6: not a screened run: {st}")
+    rows_per_block = st["rows"] // st["n_blocks"]
+    for p2, run in runs.items():
+        tag = f"phase 6 screened {p2}"
+        if run["tsv"] != ref["tsv"]:
+            raise AssertionError(f"{tag}: TSV differs from the CPU run")
+        if run["totals"] != ref["totals"] or run["totals"][0] != N_READS:
+            raise AssertionError(f"{tag}: totals {run['totals']} vs "
+                                 f"{ref['totals']}")
+        check_best_hits(run["out"], n_source)
+        if run["stats"]["pass2"] != p2 or run["stats"]["slow_rows"]:
+            raise AssertionError(f"{tag}: stats {run['stats']}")
+        other = "pair_count" if p2 == "gemm" else "group_count"
+        mine = "group_count" if p2 == "gemm" else "pair_count"
+        la = run["launches"]
+        launched = min(la["hash_loc"], la["count_mask"], la[mine]) > 0
+        if (dev.type == "cuda" and not launched) or la[other]:
+            raise AssertionError(f"{tag}: launches {la}")
+    log(f"phase 6 DB: {st['n_blocks']} blocks x {rows_per_block} Bloom rows "
+        f"x {st['words']} words ({32 * st['words']} targets a block), union "
+        f"screen {st['union_rows']} rows; indexed in {index_s:.1f} s")
+    for p2, run in runs.items():
+        log(f"phase 6 screened {p2}: TSV byte-identical to the CPU run "
+            f"({len(run['tsv'])} bytes, {run['totals'][1]}/{run['totals'][0]}"
+            f" reads matched, all {n_source} source reads best-hit their "
+            f"genome); {N_READS / run['wall']:.1f} reads/s (run_search wall "
+            f"incl. DB load), CPU run {N_READS / ref['wall']:.1f} reads/s; "
+            f"{run['stats']['pairs']} active pairs, 4x retries "
+            f"{run['stats']['retries']}, slow rows 0, launches "
+            f"{run['launches']}")
+
+    breakdown = {}
+    for p2 in ("gemm", "pair"):
+        acc: dict = {}
+        with stage_timers(torch, acc):
+            run = search(p2, dev, f"{dev.type}.{p2}.timed")
+        if run["tsv"] != ref["tsv"]:
+            raise AssertionError(f"phase 6 timed {p2}: TSV differs")
+        acc["compaction"] = (acc.pop("pass2_route")
+                             - acc.get("pass2_kernel", 0.0)
+                             - acc.get("u_build", 0.0))
+        breakdown[p2] = acc
+        log(f"phase 6 stages {p2} (synchronised host clock, s): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in acc.items())
+            + f"; run_search wall {run['wall']:.3f}")
+    return {"launches": {p: r["launches"] for p, r in runs.items()},
+            "breakdown": breakdown}
+
+
 def main() -> int:
+    t_start = time.time()
     import torch
 
     if not torch.cuda.is_available():
@@ -358,18 +644,19 @@ def main() -> int:
         f" s); ptxas: {' | '.join(ptxas)}")
 
     kern = phase_kernels(torch, dev)
+    kern.update(phase_pass2(torch, dev))
 
     os.makedirs(SCRATCH, exist_ok=True)
     t0 = time.time()
     wide_db, genomes = build_db("wide", WIDE_GENOMES, WIDE_CHUNKS, 1000, 1, 42)
     build_s = time.time() - t0
-    reads = os.path.join(SCRATCH, "wide.reads.fq")
-    n_source = write_reads(reads, genomes, 7)
+    wide_reads = os.path.join(SCRATCH, "wide.reads.fq")
+    wide_source = write_reads(wide_reads, genomes, 7)
     del genomes
     log(f"phase 4 DB: {WIDE_GENOMES * WIDE_CHUNKS} targets built in "
         f"{build_s:.1f} s")
-    wide = phase_main_path(torch, dev, "phase 4 wide", wide_db, reads,
-                           n_source, "plain")
+    wide = phase_main_path(torch, dev, "phase 4 wide", wide_db, wide_reads,
+                           wide_source, "plain")
 
     t0 = time.time()
     narrow_db, genomes = build_db("narrow", NARROW_GENOMES, NARROW_CHUNKS,
@@ -379,24 +666,42 @@ def main() -> int:
     del genomes
     log(f"phase 5 DB: {NARROW_GENOMES * NARROW_CHUNKS} targets, 3 hashes, "
         f"built in {time.time() - t0:.1f} s")
-    phase_main_path(torch, dev, "phase 5 narrow", narrow_db, reads,
-                    n_source, "cpu")
+    narrow = phase_main_path(torch, dev, "phase 5 narrow", narrow_db, reads,
+                             n_source, "cpu")
+
+    screened = phase_screened(torch, dev, os.path.join(SCRATCH, "wide", "ks"),
+                              wide_reads, wide_source)
 
     sources = {
         "hash_loc": ("kmcp_tpu_torch/csrc/hash_loc.cu",
                      "kmcp_tpu/search/pallas_hash.py:36"),
         "count_mask": ("kmcp_tpu_torch/csrc/count_mask.cu",
                        "kmcp_tpu/search/pallas_count.py:146,363,488"),
+        "pair_count": ("kmcp_tpu_torch/csrc/pair_count.cu",
+                       "kmcp_tpu/search/pallas_count.py:658"),
+        "group_count": ("kmcp_tpu_torch/csrc/group_count.cu",
+                        "kmcp_tpu/search/pallas_count.py:823"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():
         rows = kern[name]
-        kernels.append({
+        by_path = {"phase 4 wide": wide["launches"][name],
+                   "phase 5 narrow": narrow["launches"][name],
+                   "phase 6 gemm": screened["launches"]["gemm"][name],
+                   "phase 6 pair": screened["launches"]["pair"][name]}
+        entry = {
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": wide["launches"][name],
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": max(r[1] for r in rows),
             "ms": rows[0][2], "plain_ms": rows[0][3], "shape": rows[0][0],
-        })
+        }
+        if len(rows[0]) > 4:  # the pass-2 kernels: the whole route too
+            entry["route_ms"] = rows[0][4]
+        entry["more"] = [{"shape": r[0], "ms": r[2], "plain_ms": r[3]}
+                         for r in rows[1:]]
+        kernels.append(entry)
+    log(f"smoke wall {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
 """``search`` on a torch device: single-end reads streamed against a
-one-block DB.
+one-block DB or a multi-block ``--block-screen --uniform-sigs`` DB.
 
 Port of kmcp_tpu/commands/search.py:74 ``run_search`` for the streaming
 path.  Searches the slice does not cover raise ``NotImplementedError``
@@ -50,11 +50,15 @@ def run_search(
     device="cuda",
     verbose: bool = True,
     stats: dict | None = None,
+    pass2: str = "auto",
 ) -> tuple[int, int]:
     """Search reads against ``db_dir`` on ``device``; returns (total,
-    matched).  ``stats``, when given, receives the streamer's
-    ``slow_rows`` and ``retries`` and the DB's Bloom ``rows`` and row
-    ``words``."""
+    matched).  ``pass2`` picks the screened pass-2 kernel of a multi-block
+    DB ("pair", "gemm" or "auto").  ``stats``, when given, receives the
+    streamer's ``slow_rows`` and ``retries``, the DB's Bloom ``rows``, row
+    ``words`` and ``n_blocks``, the pass-2 kernel that ran (``pass2``,
+    None for one block), the union screen's ``union_rows`` and the active
+    (read, block) ``pairs`` of pass 2 (both 0 for one block)."""
     # the object engine serves only reads over the dedup threshold, and
     # always with the numpy counter
     opt = dataclasses.replace(opt or SearchOptions(), backend="numpy",
@@ -94,7 +98,7 @@ def run_search(
             file=sys.stderr,
         )
     t0 = time.time()
-    streamer = TorchStreamSearcher(engine, dev)
+    streamer = TorchStreamSearcher(engine, dev, pass2)
     k_max = max(engine.dbs[0].info.ks)
     out = sys.stdout if out_file == "-" else xopen(out_file, "wt")
     try:
@@ -118,6 +122,10 @@ def run_search(
             file=sys.stderr,
         )
     if stats is not None:
+        ddb = streamer.dev
         stats.update(slow_rows=streamer.slow_rows, retries=streamer.retries,
-                     rows=streamer.dev.total_rows, words=streamer.dev.w)
+                     rows=ddb.total_rows, words=ddb.w, n_blocks=ddb.n_blocks,
+                     pass2=ddb.pass2,
+                     union_rows=ddb.screen["num_bits"] if ddb.screen else 0,
+                     pairs=ddb.tail_stats["pairs"] if ddb.screen else 0)
     return total, matched

@@ -27,14 +27,15 @@
 // read straight from device memory: every thread of a read loads the same
 // address, which the cache broadcasts, so there is no shared-memory staging
 // and no limit on K.  The positional popcount is a bit-sliced vertical
-// counter in registers (plane l holds bit l of the 32 per-target counts; a
-// plane adds with an early-exit ripple carry, about two levels on average)
-// and unpacks once per thread at the end.  The caller bounds device memory
+// counter in registers (bitslice.cuh, shared with K5' pair_count.cu) and
+// unpacks once per thread at the end.  The caller bounds device memory
 // by launching on read chunks whose counts stay near 1 GB (counts for a
 // whole 16k-read batch at 131k targets would be 8.6 GB).
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "bitslice.cuh"
 
 namespace {
 
@@ -59,30 +60,11 @@ __global__ void count_mask_kernel(const uint32_t* __restrict__ bits, int W,
     const int32_t* li = lb + (size_t)i * h;
     uint32_t x = __ldg(bits + (size_t)li[0] * W + w);
     for (int jj = 1; jj < h; ++jj) x &= __ldg(bits + (size_t)li[jj] * W + w);
-#pragma unroll
-    for (int l = 0; l < 32; ++l) {
-      if (!x) break;
-      const uint32_t carry = c[l] & x;
-      c[l] ^= x;
-      x = carry;
-    }
+    bitslice_add(c, x);
   }
 
-  const int floor_read = cthr[b];
-  const int32_t* tw = thr + (size_t)w * 32;
-  int32_t* cw = counts + (size_t)g * 32;
-  uint32_t m = 0;
-#pragma unroll 1
-  for (int j = 0; j < 32; ++j) {
-    uint32_t cnt = 0;
-#pragma unroll
-    for (int l = 0; l < 32; ++l) {
-      if (l < nlev) cnt |= ((c[l] >> j) & 1u) << l;
-    }
-    cw[j] = (int32_t)cnt;
-    const int fl = max(tw[j], floor_read);
-    if ((int)cnt >= fl) m |= 1u << j;
-  }
+  const uint32_t m = bitslice_store(c, nlev, thr + (size_t)w * 32, cthr[b],
+                                    counts + (size_t)g * 32);
   mask[g] = m;
 }
 
@@ -94,8 +76,7 @@ __global__ void count_mask_kernel(const uint32_t* __restrict__ bits, int W,
 extern "C" int kmcp_count_mask(const void* bits, int W, const void* loc, int B,
                                int K, int h, const void* cthr, const void* thr,
                                void* counts, void* mask, void* stream) {
-  int nlev = 1;
-  while (nlev < 32 && (1LL << nlev) <= (long long)K) ++nlev;  // counts <= K
+  const int nlev = bitslice_levels(K);  // counts <= K
   const int threads = 256;
   const long long n = (long long)B * W;
   const long long blocks = (n + threads - 1) / threads;

@@ -1,8 +1,9 @@
 // K1' hash_loc: rolling canonical ntHash1 -> Bloom row locations.
 //
 // Replaces the Pallas TPU kernel kmcp_tpu/search/pallas_hash.py:
-// make_pallas_hash_loc (the plain loc planes + nk; the screen and value
-// planes and the 2-/4-bit read packings are not ported).
+// make_pallas_hash_loc (the loc planes, nk and, for one hash, the screen
+// plane of the two-pass screened search; the value planes and the 2-/4-bit
+// read packings are not ported).
 //
 // What bounds it on an H100: latency of one sequential dependency chain per
 // read.  Each thread walks its read base by base (rol/ror/xor on 64-bit
@@ -23,6 +24,8 @@
 // with & 0xDF; h = unsigned min(fh, rh); a window is valid when run >= k,
 // h != 0 and h <= max_hash; h == 1 takes the full 64-bit h % S, h > 1 takes
 // uint32(hi + lo * j) % S; invalid windows point at the sentinel row S.
+// The screen plane (h = 1 only, pallas_hash.py:282-286) is the full 64-bit
+// h % screen_sigs of the same window, with sentinel screen_sigs.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -57,13 +60,16 @@ __device__ __forceinline__ bool seed_of(uint8_t byte, const Seeds& s,
 __global__ void hash_loc_kernel(const uint8_t* __restrict__ reads, int B,
                                 int lmax, int k, uint32_t num_sigs,
                                 uint64_t max_hash, int h, Seeds seeds,
+                                uint32_t screen_sigs,
                                 int32_t* __restrict__ loc,
+                                int32_t* __restrict__ locu,
                                 int32_t* __restrict__ nk) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const uint8_t* r = reads + (size_t)b * lmax;
   const int K = lmax - k + 1;
   int32_t* out = loc + (size_t)b * K * h;
+  int32_t* outu = locu ? locu + (size_t)b * K : nullptr;
   const int32_t sentinel = (int32_t)num_sigs;
   uint64_t fh = 0, rh = 0;
   int run = 0, count = 0;
@@ -87,6 +93,9 @@ __global__ void hash_loc_kernel(const uint8_t* __restrict__ reads, int B,
     int32_t* o = out + (size_t)(i - (k - 1)) * h;
     if (h == 1) {
       o[0] = valid ? (int32_t)(hv % num_sigs) : sentinel;
+      if (outu)
+        outu[i - (k - 1)] =
+            valid ? (int32_t)(hv % screen_sigs) : (int32_t)screen_sigs;
     } else {
       const uint32_t hi = (uint32_t)(hv >> 32), lo = (uint32_t)hv;
       for (int j = 0; j < h; ++j) {
@@ -102,21 +111,24 @@ __global__ void hash_loc_kernel(const uint8_t* __restrict__ reads, int B,
 }  // namespace
 
 // reads uint8 [B, lmax] (zero padded); loc int32 [B, lmax-k+1, h];
-// nk int32 [B].  Returns cudaGetLastError() after the launch.
+// locu int32 [B, lmax-k+1] (the screen plane, h = 1) or null; nk int32 [B].
+// Returns cudaGetLastError() after the launch.
 extern "C" int kmcp_hash_loc(const void* reads, int B, int lmax, int k,
                              long long num_sigs, unsigned long long max_hash,
                              int h, unsigned long long seed_a,
                              unsigned long long seed_c,
                              unsigned long long seed_g,
-                             unsigned long long seed_t, void* loc, void* nk,
-                             void* stream) {
+                             unsigned long long seed_t,
+                             long long screen_sigs, void* loc, void* locu,
+                             void* nk, void* stream) {
   const Seeds seeds{seed_a, seed_c, seed_g, seed_t};
   const int threads = 64;
   const int blocks = (B + threads - 1) / threads;
   if (blocks > 0) {
     hash_loc_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
         (const uint8_t*)reads, B, lmax, k, (uint32_t)num_sigs,
-        (uint64_t)max_hash, h, seeds, (int32_t*)loc, (int32_t*)nk);
+        (uint64_t)max_hash, h, seeds, (uint32_t)screen_sigs, (int32_t*)loc,
+        (int32_t*)locu, (int32_t*)nk);
   }
   return (int)cudaGetLastError();
 }

@@ -4,10 +4,11 @@ The counterpart of the native C++ loader (kmcp_tpu/kmer/native.py:29-53,
 ``_build``/``get_lib``) for the CUDA sources under ``kmcp_tpu_torch/csrc/``.
 At first use every ``csrc/*.cu`` file is compiled by ``nvcc`` for
 ``sm_90a`` into one shared library with a plain C interface, under
-``kmcp_tpu_torch/build/<source hash>/``; a change to any source changes the
-hash and so triggers a rebuild.  Nothing includes PyTorch's headers, so a
-build takes seconds.  A missing ``nvcc`` or a failed build raises with the
-compiler's output; there is no fallback.
+``kmcp_tpu_torch/build/<source hash>/``; a change to any source or to a
+shared header (``csrc/*.cuh``) changes the hash and so triggers a
+rebuild.  Nothing includes PyTorch's headers, so a build takes seconds.
+A missing ``nvcc`` or a failed build raises with the compiler's output;
+there is no fallback.
 """
 
 from __future__ import annotations
@@ -43,7 +44,8 @@ def sources() -> list[str]:
 
 def source_hash() -> str:
     h = hashlib.sha256()
-    for path in sources():
+    headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+    for path in sources() + headers:
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
             h.update(f.read())
@@ -105,12 +107,20 @@ def get_lib() -> ctypes.CDLL:
             i64, u64 = ctypes.c_longlong, ctypes.c_ulonglong
             lib.kmcp_hash_loc.argtypes = [
                 vp, i32, i32, i32, i64, u64, i32, u64, u64, u64, u64,
-                vp, vp, vp,
+                i64, vp, vp, vp, vp,
             ]
             lib.kmcp_hash_loc.restype = i32
             lib.kmcp_count_mask.argtypes = [
                 vp, i32, vp, i32, i32, i32, vp, vp, vp, vp, vp,
             ]
             lib.kmcp_count_mask.restype = i32
+            lib.kmcp_pair_count.argtypes = [
+                vp, i32, i32, i32, vp, i32, vp, vp, i32, vp, vp, vp, vp, vp,
+            ]
+            lib.kmcp_pair_count.restype = i32
+            lib.kmcp_group_count.argtypes = [
+                vp, i32, i32, i32, vp, vp, i32, vp, vp,
+            ]
+            lib.kmcp_group_count.restype = i32
             _lib = lib
     return _lib

@@ -1,11 +1,16 @@
-"""Device-resident single-block bit matrix and the read search step.
+"""Device-resident bit matrix, threshold tables and the read search step.
 
 Port of kmcp_tpu/search/device.py ``DeviceDB`` (``__init__`` :451-558,
-``cmin_for`` :603, ``search_reads_pallas`` :622, single-block non-sketch
-branch).  The bit matrix lives on ``device`` as an int32 view [S+1, W] with
-the all-zero sentinel row S last; the threshold tables are built on the host
-in float64 exactly as the JAX package builds them (``build_cmin_table``,
-``build_tmin_table``) and copied to the device once.
+``_load_screen`` :560, ``_theta_for`` :583, ``cmin_for`` :603,
+``search_reads_pallas`` :622, ``_search_reads_screened`` :846) for
+non-sketch DBs.  The blocks live on ``device`` row-stacked as an int32 view
+[nb*S+1, W] with the all-zero sentinel row last.  A one-block DB takes the
+dense count tail (device_step.py); a multi-block DB indexed with
+``--block-screen --uniform-sigs`` takes the two-pass screened tail
+(screen.py) over the packed union table.  The threshold tables are built on
+the host in float64 exactly as the JAX package builds them
+(``build_cmin_table``, ``build_tmin_table``, the screen's theta band) and
+copied to the device.
 """
 
 from __future__ import annotations
@@ -14,29 +19,42 @@ import numpy as np
 import torch
 
 from kmcp_tpu.search.device import build_cmin_table, build_tmin_table
+from kmcp_tpu.search.device_screened import build_packed_union, two_pass_ready
 from kmcp_tpu.search.device_step import _stack_blocks
 
 from .device_step import count_tail, target_floor
+from .group_count import gemm_slabs, s_pad_for
 from .hash_loc import hash_loc
+from .screen import PASS2, pass2_kernel, screened_tail
+
+MULTI_BLOCK_NEEDS = (
+    "multi-block DBs stream on the device only when indexed with "
+    "--block-screen --uniform-sigs and one hash (ROADMAP A5)"
+)
 
 
 def numpy_state(db, opt) -> dict:
-    """The arrays a TorchDeviceDB is built from, straight from a one-block
-    index (``_stack_blocks`` + ``build_tmin_table``)."""
-    if len(db.blocks) != 1:
-        raise NotImplementedError(
-            "multi-block DBs need the screened tail (ROADMAP A5)"
-        )
+    """The arrays a TorchDeviceDB is built from, straight from the index
+    (``_stack_blocks`` + ``build_tmin_table``, and for a multi-block DB the
+    packed union table of ``build_packed_union``)."""
+    n_blocks = len(db.blocks)
+    if n_blocks > 1 and not two_pass_ready(db):
+        raise NotImplementedError(MULTI_BLOCK_NEEDS)
     stacked, names, indices, gsizes, sizes, _rows, _w, _offs = (
         _stack_blocks(db)
     )
     sizes = np.asarray(sizes, dtype=np.int64)
-    # build_tmin_table divides by the size: padding lanes (size 0) keep
-    # tmin 1 and are masked by sizes_pos
+    # build_tmin_table divides by the size: padding lanes (size 0, in any
+    # block) keep tmin 1 and are masked by sizes_pos
     tmin = np.ones(len(sizes), dtype=np.int32)
     real = sizes > 0
     tmin[real] = build_tmin_table(sizes[real].astype(np.float64),
                                   opt.min_target_cov)
+    screen = None
+    if n_blocks > 1:
+        u_ext, num_bits, fprs = build_packed_union(db, n_blocks)
+        screen = {"u_ext": u_ext, "num_bits": num_bits, "fprs": fprs,
+                  "s_block": int(db.blocks[0].bits.shape[0])}
     return {
         "bits_ext": stacked,
         "names": np.asarray(names, dtype=object),
@@ -49,26 +67,32 @@ def numpy_state(db, opt) -> dict:
         "k": max(db.info.ks),
         "num_hashes": db.info.num_hashes,
         "max_hash": (1 << 64) - 1 if db.max_hash is None else db.max_hash,
+        "screen": screen,
     }
 
 
 class TorchDeviceDB:
-    """One-block bit matrix on ``device`` plus its threshold tables."""
+    """Row-stacked bit matrix on ``device`` plus its threshold tables and,
+    for a multi-block DB, the screen.  ``pass2`` picks the screened pass-2
+    kernel: "pair" (K5'), "gemm" (K6') or "auto" (``pass2_kernel``)."""
 
-    def __init__(self, db, opt, device):
-        self._init(numpy_state(db, opt), opt, device, db.query_fpr)
+    def __init__(self, db, opt, device, pass2: str = "auto"):
+        self._init(numpy_state(db, opt), opt, device, db.query_fpr, pass2)
 
     @classmethod
-    def from_numpy_state(cls, state: dict, opt, device, query_fpr=None):
+    def from_numpy_state(cls, state: dict, opt, device, query_fpr=None,
+                         pass2: str = "auto"):
         """Build from numpy arrays (e.g. a JAX ``DeviceDB``'s): bits_ext
         with its sentinel row, names, indices, gsizes, sizes, sizes_pos,
-        tmin, ``cmin`` {n_max: table} and the scalars k, num_hashes,
-        max_hash.  ``query_fpr`` builds cmin tables the state lacks."""
+        tmin, ``cmin`` {n_max: table}, the scalars k, num_hashes, max_hash
+        and, for a multi-block DB, ``screen`` {u_ext, num_bits, fprs,
+        s_block} (a JAX ``DeviceDB.screen``).  ``query_fpr`` builds cmin
+        tables the state lacks."""
         self = cls.__new__(cls)
-        self._init(state, opt, device, query_fpr)
+        self._init(state, opt, device, query_fpr, pass2)
         return self
 
-    def _init(self, state, opt, device, query_fpr):
+    def _init(self, state, opt, device, query_fpr, pass2):
         self.opt = opt
         self.device = torch.device(device)
         self.query_fpr = query_fpr
@@ -82,10 +106,11 @@ class TorchDeviceDB:
         self.indices = np.asarray(state["indices"], dtype=np.int64)
         self.gsizes = np.asarray(state["gsizes"], dtype=np.int64)
         self.sizes = np.asarray(state["sizes"], dtype=np.int64)
+        self.n_blocks = len(self.sizes) // self.t_per_block
         self._tmin_np = np.asarray(state["tmin"], dtype=np.int32)
         self.thr = torch.from_numpy(target_floor(
             self._tmin_np, np.asarray(state["sizes_pos"], dtype=bool)
-        )).to(self.device)
+        ).reshape(self.n_blocks, self.t_per_block)).to(self.device)
         self._cmin_cache = {
             int(n): torch.from_numpy(np.array(t, dtype=np.int32)).to(
                 self.device)
@@ -94,6 +119,42 @@ class TorchDeviceDB:
         self.k = int(state["k"])
         self.num_hashes = int(state["num_hashes"])
         self.max_hash = int(state["max_hash"])
+        self.screen = None
+        self.pass2 = None  # the pass-2 kernel of the screened tail
+        if self.n_blocks > 1:
+            scr = state.get("screen")
+            if scr is None or self.num_hashes != 1:
+                raise NotImplementedError(MULTI_BLOCK_NEEDS)
+            u = np.ascontiguousarray(scr["u_ext"], dtype=np.uint32)
+            self.screen = {
+                "u_ext": torch.tensor(u.view(np.int32), device=self.device),
+                "num_bits": int(scr["num_bits"]),
+                "fprs": np.asarray(scr["fprs"], dtype=np.float64),
+                "s_block": int(scr["s_block"]),
+            }
+            self.s_block = self.screen["s_block"]
+            if self.s_block * self.n_blocks != self.total_rows:
+                raise ValueError(
+                    f"{self.total_rows} rows are not {self.n_blocks} blocks "
+                    f"of {self.s_block}"
+                )
+            self._theta_cache: dict[int, torch.Tensor] = {}
+            self._bits01 = None
+            self.tail_stats = {"pairs": 0}  # active pairs, all batches
+            self.pass2 = self._pick_pass2(pass2)
+
+    def _pick_pass2(self, pass2: str) -> str:
+        dedup = self.opt.kmer_dedup_threshold
+        if pass2 == "auto":
+            return pass2_kernel(self.n_blocks, self.w, self.s_block, dedup)
+        if pass2 not in PASS2:
+            raise ValueError(f"pass2 must be auto, pair or gemm, got {pass2!r}")
+        if pass2 == "gemm" and dedup > 256:
+            raise ValueError(
+                f"pass2='gemm' needs kmer_dedup_threshold <= 256 (bf16 "
+                f"holds row multiplicities up to 256), got {dedup}"
+            )
+        return pass2
 
     def cmin_for(self, n_max: int) -> torch.Tensor:
         """cmin[n] for n <= n_max, n_max bucketed to multiples of 64
@@ -111,19 +172,59 @@ class TorchDeviceDB:
             self._cmin_cache[n_max] = t
         return t
 
+    def theta_for(self, n_max: int) -> torch.Tensor:
+        """[nb, n_max+1] int32 screen thresholds, n_max bucketed to
+        multiples of 64: the junk-FP band of HostDB.screen_active (mean +
+        3 sigma of a union Bloom's false-positive count, at least
+        min_kmers), in float64 on the host (device.py:583-601)."""
+        n_max = max(64, -(-n_max // 64) * 64)
+        t = self._theta_cache.get(n_max)
+        if t is None:
+            n = np.arange(n_max + 1, dtype=np.float64)
+            f = self.screen["fprs"][:, None]
+            th = np.maximum(
+                float(self.opt.min_kmers),
+                np.ceil(f * n + 3.0 * np.sqrt(n * f * (1.0 - f))),
+            ).astype(np.int32)
+            t = torch.from_numpy(th).to(self.device)
+            self._theta_cache[n_max] = t
+        return t
+
+    def gemm_slabs(self) -> torch.Tensor:
+        """K6''s unpacked [nb, S_pad, 32 W] int8 slabs, built once."""
+        if self._bits01 is None:
+            self._bits01 = gemm_slabs(self.bits_ext, self.n_blocks,
+                                      self.s_block, s_pad_for(self.s_block))
+        return self._bits01
+
     def search_reads(self, reads: torch.Tensor, lens: np.ndarray,
                      cand_budget: int) -> tuple[np.ndarray, np.ndarray]:
         """reads uint8 [B, lmax] on the device (zero padded ASCII), lens
-        [B] -> (meta int32, aux uint16) host arrays (device_step.py)."""
+        [B] -> (meta int32, aux uint16) host arrays: the flat-id layout of
+        the dense tail (one block) or the split-id layout of the screened
+        tail (device_step.py)."""
         opt = self.opt
         lmax = reads.shape[1]
-        loc, nk = hash_loc(reads, self.k, self.total_rows, self.max_hash,
-                           self.num_hashes)
         lens_t = torch.from_numpy(
             np.asarray(lens).astype(np.int32)
         ).to(self.device)
-        cmin = self.cmin_for(max(lmax - self.k + 1, 1))
+        K = max(lmax - self.k + 1, 1)
+        cmin = self.cmin_for(K)
+        if self.screen is not None:
+            loc, nk, loc_u = hash_loc(
+                reads, self.k, self.s_block, self.max_hash, 1,
+                screen_sigs=self.screen["num_bits"],
+            )
+            return screened_tail(
+                self.bits_ext, self.screen["u_ext"], loc[:, :, 0], loc_u, nk,
+                lens_t, cmin, self.theta_for(K), self.thr, cand_budget,
+                opt.min_query_len, opt.kmer_dedup_threshold, self.pass2,
+                self.gemm_slabs() if self.pass2 == "gemm" else None,
+                stats=self.tail_stats,
+            )
+        loc, nk = hash_loc(reads, self.k, self.total_rows, self.max_hash,
+                           self.num_hashes)
         return count_tail(
-            self.bits_ext, loc, nk, lens_t, cmin, self.thr, cand_budget,
+            self.bits_ext, loc, nk, lens_t, cmin, self.thr[0], cand_budget,
             opt.min_query_len, opt.kmer_dedup_threshold,
         )

@@ -12,6 +12,10 @@ Result layout (device_step.py:578-583), as host numpy arrays:
        with min(B*T, 2^31-1); n_cand is the EXACT total even past the
        budget, so the stream layer retries with 4x the budget;
   aux  uint16 [budget + B] = [counts..., nkmers...], both clipped to 65535.
+The screened multi-block tail (search/screen.py) leaves in the split-id
+layout (device_screened.py:498-504, read by stream.py ``_unpack_result``):
+  meta int32 [1 + 2 budget] = [n_cand, read ids..., global target ids...],
+       padded with B and 0; aux as above.
 """
 
 from __future__ import annotations
@@ -39,18 +43,25 @@ def read_floor(nk: torch.Tensor, lens: torch.Tensor, cmin: torch.Tensor,
     return torch.where(excl, FLOOR_NEVER, c).to(torch.int32)
 
 
-def compact_plain(mask: torch.Tensor, counts: torch.Tensor
-                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Set bits of mask int32 [B, W] -> (ascending flat ids b*32W + t
-    int64, their counts int32): nonzero words, then their bits."""
+def mask_hits(mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Set bits of mask int32 [R, W] -> (rows, target lanes 32 w + j)
+    int64, ascending by (row, lane): nonzero words, then their bits."""
     W = mask.shape[1]
     words = mask.reshape(-1)
-    wid = torch.nonzero(words).squeeze(1)  # ascending (b, w)
+    wid = torch.nonzero(words).squeeze(1)  # ascending (row, w)
     shifts = torch.arange(32, dtype=torch.int32, device=mask.device)
     bits = ((words[wid][:, None] >> shifts) & 1).bool()
     row, j = torch.nonzero(bits, as_tuple=True)  # row-major: ascending
     w_flat = wid[row]
-    ids = (w_flat // W) * (32 * W) + (w_flat % W) * 32 + j
+    return w_flat // W, (w_flat % W) * 32 + j
+
+
+def compact_plain(mask: torch.Tensor, counts: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Set bits of mask int32 [B, W] -> (ascending flat ids b*32W + t
+    int64, their counts int32)."""
+    rows, t = mask_hits(mask)
+    ids = rows * (32 * mask.shape[1]) + t
     return ids, counts.reshape(-1)[ids]
 
 
@@ -62,6 +73,24 @@ def pack_result(ids: torch.Tensor, cnt: torch.Tensor, nk: torch.Tensor,
     meta = np.full(1 + budget, min(n_flat, 2**31 - 1), dtype=np.int32)
     meta[0] = min(n, 2**31 - 1)
     meta[1 : 1 + keep] = ids[:keep].cpu().numpy()
+    aux = np.zeros(budget + nk.shape[0], dtype=np.uint16)
+    aux[:keep] = cnt[:keep].clamp(0, 65535).cpu().numpy()
+    aux[budget:] = nk.clamp(0, 65535).cpu().numpy()
+    return meta, aux
+
+
+def pack_result_split(q: torch.Tensor, t: torch.Tensor, cnt: torch.Tensor,
+                      nk: torch.Tensor, budget: int
+                      ) -> tuple[np.ndarray, np.ndarray]:
+    """(meta, aux) host arrays in the split-id layout from all candidates
+    of a batch: read ids q, global target ids t, counts cnt."""
+    n = int(q.numel())
+    keep = min(n, budget)
+    meta = np.zeros(1 + 2 * budget, dtype=np.int32)
+    meta[0] = min(n, 2**31 - 1)
+    meta[1 : 1 + budget] = nk.shape[0]
+    meta[1 : 1 + keep] = q[:keep].cpu().numpy()
+    meta[1 + budget : 1 + budget + keep] = t[:keep].cpu().numpy()
     aux = np.zeros(budget + nk.shape[0], dtype=np.uint16)
     aux[:keep] = cnt[:keep].clamp(0, 65535).cpu().numpy()
     aux[budget:] = nk.clamp(0, 65535).cpu().numpy()

@@ -1,13 +1,18 @@
 """Rolling canonical ntHash1 -> Bloom row locations (kernel K1').
 
 Port of the Pallas kernel kmcp_tpu/search/pallas_hash.py:36
-``make_pallas_hash_loc`` (loc planes + per-read valid-window count).  The
+``make_pallas_hash_loc`` (loc planes, per-read valid-window count and, with
+``screen_sigs``, the screen plane of the two-pass screened search).  The
 CUDA kernel is ``kmcp_tpu_torch/csrc/hash_loc.cu``; ``hash_loc_plain`` is
 the same function in plain PyTorch, which CPU tensors take and which the
 tests and the chip smoke hold the kernel against.
 
 Output layout is read-major: ``loc`` int32 [B, K, h] (K = lmax - k + 1
-windows, invalid windows -> sentinel row ``num_sigs``) and ``nk`` int32 [B].
+windows, invalid windows -> sentinel row ``num_sigs``) and ``nk`` int32 [B];
+with ``screen_sigs`` > 0 (one hash only, as ``_screen_geometry`` requires,
+kmcp_tpu/search/device_screened.py:38) also ``loc_u`` int32 [B, K], the
+full 64-bit ``h mod screen_sigs`` of the same windows with sentinel
+``screen_sigs`` (pallas_hash.py:282-286).
 """
 
 from __future__ import annotations
@@ -22,7 +27,8 @@ _U64 = (1 << 64) - 1
 _BIT63 = -(1 << 63)  # int64 with only bit 63 set: flips unsigned order
 
 
-def _check(reads: torch.Tensor, k: int, num_sigs: int, num_hashes: int):
+def _check(reads: torch.Tensor, k: int, num_sigs: int, num_hashes: int,
+           screen_sigs: int):
     if reads.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {reads.device}")
     if reads.dtype != torch.uint8 or reads.dim() != 2:
@@ -36,31 +42,41 @@ def _check(reads: torch.Tensor, k: int, num_sigs: int, num_hashes: int):
         raise ValueError(f"k={k} needs 1 <= k <= lmax={reads.shape[1]}")
     if not 1 <= num_sigs < 2**31:
         raise ValueError(f"num_sigs={num_sigs} must be in 1..2^31-1")
+    if not 0 <= screen_sigs < 2**31:
+        raise ValueError(f"screen_sigs={screen_sigs} must be in 0..2^31-1")
+    if screen_sigs and num_hashes != 1:
+        raise ValueError("the screen plane needs num_hashes == 1")
 
 
 def hash_loc(reads: torch.Tensor, k: int, num_sigs: int, max_hash: int,
-             num_hashes: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+             num_hashes: int = 1, screen_sigs: int = 0) -> tuple:
     """reads uint8 [B, lmax] (zero padded ASCII) -> (loc int32
-    [B, lmax-k+1, num_hashes], nk int32 [B]).  A CPU tensor takes
-    ``hash_loc_plain``; a CUDA tensor launches the kernel or raises."""
+    [B, lmax-k+1, num_hashes], nk int32 [B]), plus loc_u int32
+    [B, lmax-k+1] when ``screen_sigs`` > 0 (one launch emits every plane).
+    A CPU tensor takes ``hash_loc_plain``; a CUDA tensor launches the
+    kernel or raises."""
     if reads.device.type == "cpu":
-        return hash_loc_plain(reads, k, num_sigs, max_hash, num_hashes)
-    _check(reads, k, num_sigs, num_hashes)
+        return hash_loc_plain(reads, k, num_sigs, max_hash, num_hashes,
+                              screen_sigs)
+    _check(reads, k, num_sigs, num_hashes, screen_sigs)
     B, lmax = reads.shape
     K = lmax - k + 1
     loc = torch.empty((B, K, num_hashes), dtype=torch.int32,
                       device=reads.device)
     nk = torch.empty((B,), dtype=torch.int32, device=reads.device)
+    loc_u = (torch.empty((B, K), dtype=torch.int32, device=reads.device)
+             if screen_sigs else None)
     stream = torch.cuda.current_stream(reads.device).cuda_stream
     rc = get_lib().kmcp_hash_loc(
         reads.data_ptr(), B, lmax, k, num_sigs, max_hash & _U64, num_hashes,
-        int(SEED_A), int(SEED_C), int(SEED_G), int(SEED_T),
-        loc.data_ptr(), nk.data_ptr(), stream,
+        int(SEED_A), int(SEED_C), int(SEED_G), int(SEED_T), screen_sigs,
+        loc.data_ptr(), loc_u.data_ptr() if screen_sigs else None,
+        nk.data_ptr(), stream,
     )
     if rc != 0:
         raise RuntimeError(f"hash_loc kernel launch failed: cuda error {rc}")
     hash_loc.launches += 1
-    return loc, nk
+    return (loc, nk, loc_u) if screen_sigs else (loc, nk)
 
 
 hash_loc.launches = 0
@@ -111,12 +127,12 @@ def _mod_u64(h: torch.Tensor, m: int) -> torch.Tensor:
 
 
 def hash_loc_plain(reads: torch.Tensor, k: int, num_sigs: int, max_hash: int,
-                   num_hashes: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+                   num_hashes: int = 1, screen_sigs: int = 0) -> tuple:
     """Plain PyTorch version of the kernel: a loop over positions,
     vectorised across reads.  torch has no unsigned 64-bit shifts or
     compares, so the values live in int64 with masked shifts and
     bit-63-flipped compares."""
-    _check(reads, k, num_sigs, num_hashes)
+    _check(reads, k, num_sigs, num_hashes, screen_sigs)
     dev = reads.device
     B, lmax = reads.shape
     fwd_tab, comp_tab, ok_tab = _seed_tables(dev)
@@ -129,7 +145,7 @@ def hash_loc_plain(reads: torch.Tensor, k: int, num_sigs: int, max_hash: int,
     nk = torch.zeros(B, dtype=torch.int32, device=dev)
     zero = torch.zeros_like(fh)
     j_off = torch.arange(num_hashes, dtype=torch.int64, device=dev)
-    locs = []
+    locs, locs_u = [], []
     for i in range(lmax):
         ok = okm[:, i]
         run = torch.where(ok, run + 1, 0)
@@ -153,5 +169,11 @@ def hash_loc_plain(reads: torch.Tensor, k: int, num_sigs: int, max_hash: int,
             v = (hi[:, None] + lo[:, None] * j_off) & 0xFFFFFFFF
             loc = v % num_sigs
         locs.append(torch.where(valid[:, None], loc, num_sigs))
+        if screen_sigs:
+            locs_u.append(torch.where(valid, _mod_u64(hv, screen_sigs),
+                                      screen_sigs))
         nk += valid.to(torch.int32)
-    return torch.stack(locs, dim=1).to(torch.int32), nk
+    loc = torch.stack(locs, dim=1).to(torch.int32)
+    if screen_sigs:
+        return loc, nk, torch.stack(locs_u, dim=1).to(torch.int32)
+    return loc, nk

@@ -1,8 +1,10 @@
-"""Streaming single-end search over a one-block DB on a torch device.
+"""Streaming single-end search on a torch device, over a one-block DB or a
+multi-block ``--block-screen --uniform-sigs`` DB.
 
 Port of kmcp_tpu/search/stream.py ``StreamSearcher`` (``__init__``,
-``usable``, ``run``; :132-637) for its single-end, single-block, non-sketch
-device path.  The batching, padding, ``lmax`` rounding, 2-slots-per-read
+``usable``, ``run``; :132-637) for its single-end, non-sketch device path
+(the dense tail for one block, the two-pass screened tail for several).
+The batching, padding, ``lmax`` rounding, 2-slots-per-read
 candidate budget, 4x overflow retry, ``lexsort`` order and the writers are
 the JAX streamer's; the writers, ``_unpack_result`` and
 ``_pack_reads_matrix`` are imported from it unchanged.  Reads ship as
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 
 from kmcp_tpu.kmer import native
+from kmcp_tpu.search.device_screened import two_pass_ready
 from kmcp_tpu.search.engine import QueryResult, SearchEngine
 from kmcp_tpu.search.stream import (
     StreamSearcher,
@@ -30,7 +33,7 @@ from kmcp_tpu.search.stream import (
     _unpack_result,
 )
 
-from .device import TorchDeviceDB
+from .device import MULTI_BLOCK_NEEDS, TorchDeviceDB
 
 
 def unsupported(engine: SearchEngine, paired: bool = False) -> str | None:
@@ -42,8 +45,8 @@ def unsupported(engine: SearchEngine, paired: bool = False) -> str | None:
     db = engine.dbs[0]
     if paired:
         return "paired reads need paired streaming (ROADMAP A6)"
-    if len(db.blocks) != 1:
-        return "multi-block DBs need the screened tail (ROADMAP A5)"
+    if len(db.blocks) != 1 and not two_pass_ready(db):
+        return MULTI_BLOCK_NEEDS
     if db.is_sketch:
         return "sketch DBs need device sketch selection (ROADMAP A7)"
     if not db.info.canonical:
@@ -56,7 +59,7 @@ def unsupported(engine: SearchEngine, paired: bool = False) -> str | None:
                 "(ROADMAP A8)")
     if opt.kmer_dedup_threshold >= 65535:
         return "kmer_dedup_threshold >= 65535 overflows the uint16 result"
-    if db.blocks[0].bits.shape[1] * 32 > (2**31) // 256:
+    if len(db.blocks) == 1 and db.blocks[0].bits.shape[1] * 32 > 2**31 // 256:
         return "more than 2^23 targets overflow the int32 flat candidate ids"
     if native.get_lib() is None:
         return "the native library (TSV writer) is unavailable"
@@ -64,14 +67,18 @@ def unsupported(engine: SearchEngine, paired: bool = False) -> str | None:
 
 
 class TorchStreamSearcher(StreamSearcher):
-    def __init__(self, engine: SearchEngine, device="cuda"):
+    """``pass2`` picks the screened tail's pass-2 kernel of a multi-block
+    DB (TorchDeviceDB)."""
+
+    def __init__(self, engine: SearchEngine, device="cuda",
+                 pass2: str = "auto"):
         reason = unsupported(engine)
         if reason:
             raise NotImplementedError(reason)
         self.engine = engine
         self.opt = engine.opt
         self.db = engine.dbs[0]
-        self.dev = TorchDeviceDB(self.db, self.opt, device)
+        self.dev = TorchDeviceDB(self.db, self.opt, device, pass2)
         self.k = self.db.ks_desc[0]
         self.multi_k = len(self.db.ks_desc) > 1
         self._fpr_tabs: dict[int, tuple] = {}
@@ -92,10 +99,12 @@ class TorchStreamSearcher(StreamSearcher):
                 "paired reads need paired streaming (ROADMAP A6)"
             )
         dev = self.dev
-        # int32 flat ids b*T + t cap the batch at B*T <= 2^31; batches
-        # stay multiples of 256 reads, as in the JAX streamer
+        # the dense tail's int32 flat ids b*T + t cap the batch at
+        # B*T <= 2^31 (the screened tail's split ids do not); batches stay
+        # multiples of 256 reads, as in the JAX streamer
         batch_size = max(self.opt.batch_size, 16384)
-        batch_size = min(batch_size, (2**31) // dev.t_per_block)
+        if dev.n_blocks == 1:
+            batch_size = min(batch_size, (2**31) // dev.t_per_block)
         batch_size = max(batch_size // 256 * 256, 256)
         fmt = (_fmt_ratio_memo(), _fmt_ratio_memo(), {})
         total = matched = 0

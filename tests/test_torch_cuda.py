@@ -1,7 +1,9 @@
 """The CUDA kernels on the card against their plain PyTorch versions at
 edge shapes the chip smoke does not reach (odd batch sizes, W = 1 and 33,
-h = 2 and 4, K past 255, scaled max_hash, k = 31).  Marked ``cuda``: they
-skip without a card and run on the GPU machine with
+h = 2 and 4, K past 255, scaled max_hash, k = 31; K1''s screen plane; K5'
+and K6' on narrow blocks, ragged S_pad and tiles of zeros), and the count
+and screened tails on the card against their CPU runs.  Marked ``cuda``:
+they skip without a card and run on the GPU machine with
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 """
@@ -12,7 +14,15 @@ import torch
 
 from kmcp_tpu_torch.search.count import count_mask, count_mask_plain
 from kmcp_tpu_torch.search.device_step import FLOOR_NEVER, count_tail
+from kmcp_tpu_torch.search.group_count import (
+    TILE,
+    gemm_slabs,
+    group_count,
+    group_count_plain,
+)
 from kmcp_tpu_torch.search.hash_loc import hash_loc, hash_loc_plain
+from kmcp_tpu_torch.search.pair_count import pair_count, pair_count_plain
+from kmcp_tpu_torch.search.screen import screened_tail
 
 pytestmark = pytest.mark.cuda
 
@@ -95,6 +105,106 @@ def test_count_tail_cuda_matches_cpu(cuda):
     for dev in (cuda, torch.device("cpu")):
         t = [torch.from_numpy(a).to(dev) for a in arrays]
         outs.append(count_tail(*t, 2048, 30, 256, chunk_reads=100))
+    assert outs[0][0][0] > 0
+    np.testing.assert_array_equal(outs[0][0], outs[1][0])
+    np.testing.assert_array_equal(outs[0][1], outs[1][1])
+
+
+@pytest.mark.parametrize("S,N", [(3578, 1 << 23), (40, 999_983)])
+def test_hash_loc_screen_plane_matches_plain(cuda, S, N):
+    reads = _reads(np.random.default_rng(N % 97), 300, 160).to(cuda)
+    n0 = hash_loc.launches
+    loc, nk, loc_u = hash_loc(reads, 21, S, FULL, 1, screen_sigs=N)
+    want = hash_loc_plain(reads, 21, S, FULL, 1, screen_sigs=N)
+    torch.cuda.synchronize()
+    assert hash_loc.launches == n0 + 1
+    for got, exp in zip((loc, nk, loc_u), want):
+        assert torch.equal(got, exp)
+    assert bool((loc_u == N).any()) and bool((loc_u < N).any())
+
+
+def _blocks(rng, nb, s_block, W):
+    bits = rng.integers(0, 2**32, (nb * s_block + 1, W), dtype=np.uint32)
+    bits &= rng.integers(0, 2**32, bits.shape, dtype=np.uint32)
+    bits[-1] = 0
+    return bits.view(np.int32)
+
+
+@pytest.mark.parametrize("nb,s_block,W,B,K,P", [
+    (3, 40, 128, 64, 12, 96), (5, 101, 1, 70, 140, 333),
+    (4, 57, 2, 33, 300, 1),
+])
+def test_pair_count_kernel_matches_plain(cuda, nb, s_block, W, B, K, P):
+    rng = np.random.default_rng(nb * 1000 + W)
+    arrays = (
+        _blocks(rng, nb, s_block, W),
+        rng.integers(0, s_block + 1, (B, K)).astype(np.int32),
+        rng.integers(0, B, P).astype(np.int32),
+        rng.integers(0, nb, P).astype(np.int32),
+        rng.integers(0, K // 3 + 2, B).astype(np.int32),
+        np.where(rng.random((nb, 32 * W)) < 0.1, FLOOR_NEVER,
+                 rng.integers(0, K // 3 + 2, (nb, 32 * W))).astype(np.int32),
+    )
+    args = [torch.from_numpy(a).to(cuda) for a in arrays]
+    n0 = pair_count.launches
+    counts, mask = pair_count(*args)
+    counts_p, mask_p = pair_count_plain(*args)
+    torch.cuda.synchronize()
+    assert pair_count.launches == n0 + 1
+    assert torch.equal(counts, counts_p) and torch.equal(mask, mask_p)
+    assert int(counts.max()) > 0
+
+
+@pytest.mark.parametrize("nb,S_pad,T,tiles", [
+    (3, 64, 4096, 5), (4, 88, 32, 3), (2, 3584, 64, 2), (5, 40, 96, 4),
+])
+def test_group_count_kernel_matches_plain(cuda, nb, S_pad, T, tiles):
+    """Ragged S_pad (88, 40: not multiples of 32), T below the 64-target
+    tile (32, 96), a tile of zeros (blk == nb) and multiplicities up to
+    256."""
+    rng = np.random.default_rng(S_pad + T)
+    bits01 = torch.from_numpy(
+        (rng.random((nb, S_pad, T)) < 0.4).astype(np.int8)).to(cuda)
+    u = rng.integers(0, 4, (tiles * TILE, S_pad)).astype(np.float32)
+    u[0, 1] = 256
+    u[1, 2] = 200
+    u = torch.from_numpy(u).to(torch.bfloat16).to(cuda)
+    blk_np = rng.integers(0, nb, tiles).astype(np.int32)
+    blk_np[-1] = nb
+    blk = torch.from_numpy(blk_np).to(cuda)
+    n0 = group_count.launches
+    got = group_count(bits01, u, blk)
+    want = group_count_plain(bits01, u, blk)
+    torch.cuda.synchronize()
+    assert group_count.launches == n0 + 1
+    assert torch.equal(got, want)
+    assert not bool(got[-TILE:].any()) and int(got.max()) > 256
+
+
+@pytest.mark.parametrize("pass2", ["pair", "gemm"])
+def test_screened_tail_cuda_matches_cpu(cuda, pass2):
+    """The whole screened tail (pass 1, pairs, pass 2 in two chunks,
+    compaction, split-id layout) on the card equals its CPU run."""
+    rng = np.random.default_rng(7)
+    nb, s_block, W, B, K, nu = 6, 300, 4, 512, 140, 4099
+    u = rng.integers(0, 2**32, (nu + 1, 1), dtype=np.uint32)
+    u[-1] = 0
+    arrays = (
+        _blocks(rng, nb, s_block, W), u.view(np.int32),
+        rng.integers(0, s_block + 1, (B, K)).astype(np.int32),
+        rng.integers(0, nu + 1, (B, K)).astype(np.int32),
+        rng.integers(100, 140, B).astype(np.int32),
+        rng.integers(120, 160, B).astype(np.int32),
+        np.minimum(np.arange(193, dtype=np.int32) // 4 + 30, 192),
+        rng.integers(60, 80, (nb, 193)).astype(np.int32),
+        np.full((nb, 32 * W), 1, dtype=np.int32),
+    )
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        t = [torch.from_numpy(a).to(dev) for a in arrays]
+        bits01 = gemm_slabs(t[0], nb, s_block, 320) if pass2 == "gemm" else None
+        outs.append(screened_tail(*t, 4096, 30, 256, pass2, bits01,
+                                  chunk_pairs=200))
     assert outs[0][0][0] > 0
     np.testing.assert_array_equal(outs[0][0], outs[1][0])
     np.testing.assert_array_equal(outs[0][1], outs[1][1])

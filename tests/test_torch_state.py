@@ -68,11 +68,17 @@ def test_state_from_jax_device_db_matches_index(tmp_path):
 
 
 def test_command_line_never_loads_jax(tmp_path):
-    """``python -m kmcp_tpu_torch search --device cpu`` on a tiny DB, with
-    a hook that fails the process if jax is in sys.modules at exit."""
+    """``python -m kmcp_tpu_torch search --device cpu`` on a tiny one-block
+    DB and on a screened multi-block DB (which reads its union screens
+    through kmcp_tpu.search.device_screened and kmcp_tpu.index.format),
+    with a hook that fails the process if jax is in sys.modules at
+    exit."""
     rng = np.random.default_rng(4)
     genomes = random_genomes(rng, 3, 20000)
-    db = build_db(tmp_path, genomes)
+    db = build_db(tmp_path / "one", genomes)
+    screened = build_db(tmp_path / "screened", genomes, split_number=4,
+                        native_block_targets=4, block_screen=True,
+                        uniform_sigs=True)
     fq = tmp_path / "r.fq"
     with open(fq, "w") as f:
         for rid, seq, _ in mixed_reads(rng, genomes, 60):
@@ -89,10 +95,12 @@ def test_command_line_never_loads_jax(tmp_path):
         "runpy.run_module('kmcp_tpu_torch', run_name='__main__')\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
-    res = subprocess.run(
-        [sys.executable, "-c", hook, "-q", "search", "--device", "cpu",
-         "-d", db, str(fq), "-o", str(out)],
-        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
-    )
-    assert res.returncode == 0, res.stderr
-    assert out.read_text().startswith("#query")
+    for d in (db, screened):
+        res = subprocess.run(
+            [sys.executable, "-c", hook, "-q", "search", "--device", "cpu",
+             "-d", d, str(fq), "-o", str(out)],
+            cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+        )
+        assert res.returncode == 0, res.stderr
+        assert out.read_text().startswith("#query")
+        out.unlink()

@@ -180,7 +180,9 @@ def test_unsupported_searches_raise(tmp_path, monkeypatch):
         run_search(db, read1=q[0], read2=q[0], device="cpu", verbose=False)
     with pytest.raises(NotImplementedError, match="A8"):
         run_search(db, q, whole_file=True, device="cpu", verbose=False)
-    with pytest.raises(NotImplementedError, match="A5"):
+    # a multi-block DB without union screens (no --block-screen)
+    with pytest.raises(NotImplementedError,
+                       match="--block-screen --uniform-sigs"):
         run_search(multi, q, device="cpu", verbose=False)
     with pytest.raises(NotImplementedError, match="A8"):
         run_search(db, q, opt=SearchOptions(low_mem=True), device="cpu",
