@@ -13,14 +13,18 @@ Phases (each prints one status line; any failure raises, exit non-zero):
   1. device: a CUDA card, its name and power limit (nvidia-smi);
   2. build: nvcc builds the CUDA kernels from kmcp_tpu_torch/csrc/;
   3. kernels: K1' hash_loc (also with the screen plane) and K2'
-     count_mask on the card at the main paths' shapes, and the screened
+     count_mask on the card at the main paths' shapes (wide, narrow, and
+     screened pass 1 over a 2^25-row union table), and the screened
      pass-2 kernels K5' pair_count and K6' group_count at 32 and 128
      blocks of 4,096 targets (random bits, 3,578 rows per block, 20,480 and
      36,864 pairs of a 16,384-read batch), each exactly equal to its plain
      PyTorch version (K6' also to K5''s counts); CUDA event times, median
      of 5 after a warm-up, of the kernels, the plain versions and each
      pass-2 route as the tail runs it (K5' + compaction; U build + K6' +
-     floors + compaction);
+     floors + compaction); each kernel's bound (``bound``) from this run's
+     inputs; and for K6' the one PyTorch call that computes the same
+     grouped product (``torch._grouped_mm`` in bf16), timed as a yardstick
+     and used nowhere in the port;
   4. main path: a 131,072-target single-block wide DB (2,048 synthetic
      genomes x 64 chunks, k=21, one hash, FPR 0.3; the recipe of
      tools/bench_large_t.py) and 65,536 150 bp reads (40 source genomes,
@@ -29,7 +33,8 @@ Phases (each prints one status line; any failure raises, exit non-zero):
      plain PyTorch versions on the card (the CPU run of the plain versions
      would take about half an hour at this width), both kernels must have
      launched, and every read drawn from a DB genome must have that genome
-     as its best hit;
+     as its best hit; then a rerun with stage timers (a synchronised host
+     clock) gives the time by stage and the steady rate;
   5. the same on a narrow-row DB (150 targets of 680 kb, W = 5 words,
      three hashes, about 1.85 M Bloom rows: the demo DB's shape), held
      byte for byte against the port's ``--device cpu`` run, which the CPU
@@ -73,9 +78,15 @@ READ_LEN = 150
 N_READS = 65_536
 WIDE_GENOMES, WIDE_CHUNKS = 2048, 64  # 131,072 targets of ~1 kb
 NARROW_GENOMES, NARROW_CHUNKS = 15, 10  # 150 targets of 680 kb
-SCREEN_SIGS = 1 << 24  # a union screen's rows in phase 3 (phase 6 prints its DB's)
+SCREEN_SIGS = 1 << 25  # a union screen's rows in phase 3 (phase 6's DB has as many)
 PASS2_CASES = ((32, 20_480), (128, 36_864))  # (blocks, pairs) in phase 3
 BLOCK_TARGETS = 4096  # targets per block of phase 6's screened DB
+
+
+# One NVIDIA H100 SXM (data sheet, dense, at its 700 W limit): HBM rate and
+# the bf16 tensor-core rate.
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOP_PER_S = 989e12
 
 
 def log(msg: str):
@@ -107,6 +118,20 @@ def time_ms(torch, fn, reps: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def bound(nbytes: float, flops: float = 0.0) -> tuple[float, str]:
+    """(bound_ms, bound_by): the least time the card could take for work
+    that moves ``nbytes`` (each input read once, each output written once)
+    and does ``flops`` bf16 tensor-core operations; the larger of the two
+    times, and which of them it is."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def max_abs_err(torch, got, want) -> int:
@@ -143,8 +168,9 @@ def random_bits(rng, rows: int, words: int, ands: int, ors: int):
 def phase_kernels(torch, dev) -> dict:
     """Phase 3: each kernel against its plain version, at the shapes the
     main path gives it (a 16,384-read batch of 150 bp reads in lmax=160
-    rows; K2' gets the read chunk the count tail launches it on)."""
-    from kmcp_tpu_torch.search.count import count_mask, count_mask_plain
+    rows; K2' gets the read chunk the count tail launches it on, and pass
+    1's batch over the union table).  The bounds count only the Bloom rows
+    this run's locations touch."""
     from kmcp_tpu_torch.search.device_step import COUNTS_BYTES, FLOOR_NEVER
     from kmcp_tpu_torch.search.hash_loc import hash_loc, hash_loc_plain
 
@@ -167,9 +193,11 @@ def phase_kernels(torch, dev) -> dict:
             raise AssertionError(f"hash_loc {label}: max abs err {err}")
         ms = time_ms(torch, lambda: hash_loc(reads, K, S, full, h))
         ms_p = time_ms(torch, lambda: hash_loc_plain(reads, K, S, full, h))
+        bd = bound(nbytes(reads, loc, nk))
         log(f"phase 3 hash_loc [{label}] B={B} lmax={lmax}: exact "
-            f"(max abs err 0); kernel {ms:.3f} ms, plain {ms_p:.3f} ms")
-        res["hash_loc"].append((label, err, ms, ms_p))
+            f"(max abs err 0); kernel {ms:.3f} ms, plain {ms_p:.3f} ms, "
+            f"bound {bd[0]:.4f} ms ({bd[1]})")
+        res["hash_loc"].append((label, err, ms, ms_p, bd))
 
         T = 32 * W
         Bc = min(B, max(1, COUNTS_BYTES // (4 * T)))
@@ -181,22 +209,9 @@ def phase_kernels(torch, dev) -> dict:
         thr = torch.from_numpy(thr_np).to(dev)
         cthr = (base + nk[:Bc] % 24).to(torch.int32)
         cthr[::97] = FLOOR_NEVER  # excluded reads
-        lc = loc[:Bc].contiguous()
-        counts, mask = count_mask(bits, lc, cthr, thr)
-        counts_p, mask_p = count_mask_plain(bits, lc, cthr, thr)
-        torch.cuda.synchronize()
-        err = max(max_abs_err(torch, counts, counts_p),
-                  max_abs_err(torch, mask, mask_p))
-        if err:
-            raise AssertionError(f"count_mask {label}: max abs err {err}")
-        n_set = int(torch.count_nonzero(mask))
-        ms = time_ms(torch, lambda: count_mask(bits, lc, cthr, thr))
-        ms_p = time_ms(torch, lambda: count_mask_plain(bits, lc, cthr, thr))
-        log(f"phase 3 count_mask [{label}] B={Bc} K={lmax - K + 1}: exact "
-            f"(max abs err 0, {n_set} mask words set); kernel {ms:.3f} ms, "
-            f"plain {ms_p:.3f} ms")
-        res["count_mask"].append((label, err, ms, ms_p))
-        del bits, counts, mask, counts_p, mask_p
+        res["count_mask"].append(check_count_mask(
+            torch, label, bits, loc[:Bc].contiguous(), cthr, thr))
+        del bits
 
     # the screened path's hash: the block-row plane and the union screen
     # plane (h = 1) in one launch
@@ -211,10 +226,45 @@ def phase_kernels(torch, dev) -> dict:
     ms_p = time_ms(torch, lambda: hash_loc_plain(reads, K, S, full, 1,
                                                  screen_sigs=N))
     label = f"screen S={S} N={N} h=1"
+    bd = bound(nbytes(reads, *got))
     log(f"phase 3 hash_loc [{label}] B={B} lmax={lmax}: exact (max abs err "
-        f"0); kernel {ms:.3f} ms, plain {ms_p:.3f} ms")
-    res["hash_loc"].append((label, err, ms, ms_p))
+        f"0); kernel {ms:.3f} ms, plain {ms_p:.3f} ms, bound {bd[0]:.4f} ms "
+        f"({bd[1]})")
+    res["hash_loc"].append((label, err, ms, ms_p, bd))
+
+    # screened pass 1: K2' over the packed union table of 32 blocks (one
+    # word a row, N rows), every read of the batch, floors 0
+    union = torch.from_numpy(random_bits(rng, N, 1, 1, 0).view(np.int32)).to(dev)
+    zeros = torch.zeros(B, dtype=torch.int32, device=dev)
+    res["count_mask"].append(check_count_mask(
+        torch, f"pass1 S={N} h=1 W=1", union, got[2].unsqueeze(2).contiguous(),
+        zeros, zeros[:32]))
     return res
+
+
+def check_count_mask(torch, label, bits, loc, cthr, thr) -> tuple:
+    """K2' against its plain version on these inputs -> (label, max abs
+    err, ms, plain ms, bound); raises unless they are equal."""
+    from kmcp_tpu_torch.search.count import count_mask, count_mask_plain
+
+    counts, mask = count_mask(bits, loc, cthr, thr)
+    counts_p, mask_p = count_mask_plain(bits, loc, cthr, thr)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(torch, counts, counts_p),
+              max_abs_err(torch, mask, mask_p))
+    if err:
+        raise AssertionError(f"count_mask {label}: max abs err {err}")
+    n_set = int(torch.count_nonzero(mask))
+    del counts_p, mask_p
+    ms = time_ms(torch, lambda: count_mask(bits, loc, cthr, thr))
+    ms_p = time_ms(torch, lambda: count_mask_plain(bits, loc, cthr, thr))
+    rows = torch.unique(loc).numel()  # the Bloom rows this run reads
+    bd = bound(rows * bits.shape[1] * 4 + nbytes(loc, cthr, thr, counts, mask))
+    B, K = loc.shape[:2]
+    log(f"phase 3 count_mask [{label}] B={B} K={K}: exact (max abs err 0, "
+        f"{n_set} mask words set); kernel {ms:.3f} ms, plain {ms_p:.3f} ms, "
+        f"bound {bd[0]:.4f} ms ({bd[1]}, {rows} rows touched)")
+    return label, err, ms, ms_p, bd
 
 
 def phase_pass2(torch, dev) -> dict:
@@ -274,11 +324,18 @@ def phase_pass2(torch, dev) -> dict:
         chunk = screen.pass2_chunk(32 * W)
         route = time_ms(torch, lambda: screen._pass2_pair(
             bits, loc, pb, pg, cthr, thr, chunk))
+        # each pair reads its read's locations and the block rows they hit
+        reads_used = torch.unique(pb).numel()
+        rows = torch.unique(pg.long()[:, None] * (s_block + 1)
+                            + loc[pb.long()]).numel()
+        bd = bound(rows * W * 4 + reads_used * (Kw + 1) * 4
+                   + torch.unique(pg).numel() * 32 * W * 4
+                   + nbytes(pb, pg, counts, mask))
         log(f"phase 3 pair_count [{label}] s_block={s_block} W={W} K={Kw}: "
             f"exact (max abs err 0, {n_set} mask words set); kernel "
-            f"{ms:.3f} ms, plain {ms_p:.3f} ms; route (K5' + compaction) "
-            f"{route:.3f} ms")
-        res["pair_count"].append((label, err, ms, ms_p, route))
+            f"{ms:.3f} ms, plain {ms_p:.3f} ms, bound {bd[0]:.4f} ms "
+            f"({bd[1]}); route (K5' + compaction) {route:.3f} ms")
+        res["pair_count"].append((label, err, ms, ms_p, bd, route))
 
         bits01 = gemm_slabs(bits, nb, s_block, S_pad)
         slot, blk = block_tiles(pg, nb)
@@ -302,15 +359,44 @@ def phase_pass2(torch, dev) -> dict:
         route6 = time_ms(torch, lambda: screen._pass2_gemm(
             bits01, loc, pb, pg, cthr, thr, s_block, chunk))
         flops = 2.0 * u.shape[0] * S_pad * 32 * W
+        slab = S_pad * 32 * W  # int8 bytes of one block's slab
+        bd = bound(torch.unique(blk).numel() * slab + nbytes(u, blk, got),
+                   flops)
+        lib_ms, lib_err = grouped_mm_yardstick(torch, bits01, u, blk, got)
         log(f"phase 3 group_count [{label}] P_pad={u.shape[0]} "
             f"S_pad={S_pad} T={32 * W}: exact (max abs err 0 vs plain and "
             f"vs pair_count); kernel {ms6:.3f} ms ({flops / ms6 / 1e9:.1f} "
-            f"TFLOP/s), plain {ms6_p:.3f} ms; U build {ms_u:.3f} ms; route "
-            f"(U build + K6' + floors + compaction) {route6:.3f} ms")
-        res["group_count"].append((label, err6, ms6, ms6_p, route6))
+            f"TFLOP/s), plain {ms6_p:.3f} ms, bound {bd[0]:.4f} ms "
+            f"({bd[1]}), torch._grouped_mm bf16 {lib_ms:.3f} ms (max abs "
+            f"err {lib_err} vs K6'); U build {ms_u:.3f} ms; route (U build "
+            f"+ K6' + floors + compaction) {route6:.3f} ms")
+        res["group_count"].append((label, err6, ms6, ms6_p, bd, route6,
+                                   lib_ms))
         del bits, bits01, u, got, loc_ext, rows
         torch.cuda.empty_cache()
     return res
+
+
+def grouped_mm_yardstick(torch, bits01, u, blk, got) -> tuple[float, int]:
+    """The one PyTorch call that computes K6''s grouped product on the same
+    inputs: ``torch._grouped_mm`` of U bf16 [P_pad, S_pad] (rows grouped by
+    block, in block order) by the 0/1 slabs in bf16, with the per-block row
+    ends as offsets.  Its bf16 output holds the counts exactly (< 256).
+    Returns (median ms, max abs err against K6''s counts)."""
+    nb = bits01.shape[0]
+    # [nb, T, S_pad] contiguous, seen as [nb, S_pad, T]: the column-major
+    # right operand the grouped GEMM takes
+    slabs = bits01.transpose(1, 2).contiguous().to(torch.bfloat16)
+    slabs = slabs.transpose(1, 2)
+    rows_per_block = torch.bincount(blk.long(), minlength=nb) * (
+        u.shape[0] // blk.shape[0])
+    offs = torch.cumsum(rows_per_block, 0).to(torch.int32)
+    out = torch._grouped_mm(u, slabs, offs=offs)
+    torch.cuda.synchronize()
+    err = max_abs_err(torch, out.to(torch.int32), got)
+    ms = time_ms(torch, lambda: torch._grouped_mm(u, slabs, offs=offs))
+    del slabs, out
+    return ms, err
 
 
 def write_genomes(gdir: str, n: int, glen: int, seed: int) -> list[bytes]:
@@ -434,10 +520,14 @@ def plain_kernels():
 
 
 def phase_main_path(torch, dev, label: str, db: str, reads: str,
-                    n_source: int, reference: str) -> dict:
+                    n_source: int, reference: str, timed: bool = False
+                    ) -> dict:
     """The port on ``dev`` against a reference run of the same reads:
     ``plain`` (the same path on ``dev`` with the plain versions) or
-    ``cpu`` (the port's CPU run).  The TSVs must be byte-identical."""
+    ``cpu`` (the port's CPU run).  The TSVs must be byte-identical.
+    ``timed``: then a rerun with stage timers gives the time by stage and
+    the steady rate (the wall without the engine open and streamer
+    set-up)."""
     from kmcp_tpu_torch.commands.search import run_search
 
     out_dev = os.path.join(SCRATCH, f"{label}.{dev.type}.tsv")
@@ -486,21 +576,35 @@ def phase_main_path(torch, dev, label: str, db: str, reads: str,
         f"{total / ref_s:.1f} reads/s (run_search wall incl. DB load); 4x "
         f"retries {stats['retries']}, slow rows {stats['slow_rows']}, "
         f"launches {launches}")
+    if timed:
+        acc: dict = {}
+        with stage_timers(torch, acc):
+            _, _, wall = counted_run(run_search, db, [reads], out_file=out_dev,
+                                     device=dev, verbose=False)
+        with open(out_dev, "rb") as f:
+            if f.read() != want:
+                raise AssertionError(f"{label} timed: TSV differs")
+        steady = wall - sum(acc.get(k, 0.0) for k in (
+            "engine_open", "engine_check", "streamer_setup"))
+        log(f"{label} stages (synchronised host clock, s): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in acc.items())
+            + f"; run_search wall {wall:.3f}; steady {total / steady:.1f} "
+            "reads/s (without engine open and streamer set-up)")
     return {"launches": launches, "device_rps": total / dev_s,
             "retries": stats["retries"]}
 
 
 @contextlib.contextmanager
 def stage_timers(torch, acc: dict):
-    """Time the screened search's stages on a synchronised host clock, by
-    wrapping the functions it calls: the DB set-up (host arrays, of which
-    the union screens' packing, then the upload; the engine's open and
-    check before it, and the streamer set-up around it), the device hash,
-    pass 1, the U build, the pass-2 kernels, the whole pass-2 routes,
-    packing with its D2H copy, and the TSV writer; seconds accumulate in
-    ``acc``."""
+    """Time a search's stages on a synchronised host clock, by wrapping
+    the functions it calls: the DB set-up (host arrays, of which the union
+    screens' packing, then the upload; the engine's open and check before
+    it, and the streamer set-up around it), the device hash, the dense
+    tail and its K2' launches, or the screened pass 1, U build, pass-2
+    kernels, whole pass-2 routes and packing with its D2H copy, and the
+    TSV writer; seconds accumulate in ``acc``."""
     from kmcp_tpu_torch.commands import search as command
-    from kmcp_tpu_torch.search import device, screen
+    from kmcp_tpu_torch.search import device, device_step, screen
     from kmcp_tpu_torch.search.stream import TorchStreamSearcher
 
     targets = [(command, "SearchEngine", "engine_open"),
@@ -509,7 +613,10 @@ def stage_timers(torch, acc: dict):
                (device, "numpy_state", "db_state"),
                (device, "build_packed_union", "db_state_union_pack"),
                (device.TorchDeviceDB, "_init", "db_upload"),
-               (device, "hash_loc", "hash"), (screen, "active_pairs", "pass1"),
+               (device, "hash_loc", "hash"),
+               (device, "count_tail", "dense_tail"),
+               (device_step, "count_mask", "dense_count_kernel"),
+               (screen, "active_pairs", "pass1"),
                (screen, "build_u", "u_build"),
                (screen, "pair_count", "pass2_kernel"),
                (screen, "group_count", "pass2_kernel"),
@@ -656,7 +763,7 @@ def main() -> int:
     log(f"phase 4 DB: {WIDE_GENOMES * WIDE_CHUNKS} targets built in "
         f"{build_s:.1f} s")
     wide = phase_main_path(torch, dev, "phase 4 wide", wide_db, wide_reads,
-                           wide_source, "plain")
+                           wide_source, "plain", timed=True)
 
     t0 = time.time()
     narrow_db, genomes = build_db("narrow", NARROW_GENOMES, NARROW_CHUNKS,
@@ -689,17 +796,22 @@ def main() -> int:
                    "phase 5 narrow": narrow["launches"][name],
                    "phase 6 gemm": screened["launches"]["gemm"][name],
                    "phase 6 pair": screened["launches"]["pair"][name]}
+
+        def timed(r) -> dict:
+            # only K6' has a one-call library counterpart
+            return {"shape": r[0], "ms": r[2], "plain_ms": r[3],
+                    "bound_ms": r[4][0], "bound_by": r[4][1],
+                    "library_ms": r[6] if len(r) > 6 else None}
+
         entry = {
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": sum(by_path.values()),
             "launches_by_path": by_path,
-            "max_abs_err": max(r[1] for r in rows),
-            "ms": rows[0][2], "plain_ms": rows[0][3], "shape": rows[0][0],
+            "max_abs_err": max(r[1] for r in rows), **timed(rows[0]),
         }
-        if len(rows[0]) > 4:  # the pass-2 kernels: the whole route too
-            entry["route_ms"] = rows[0][4]
-        entry["more"] = [{"shape": r[0], "ms": r[2], "plain_ms": r[3]}
-                         for r in rows[1:]]
+        if len(rows[0]) > 5:  # the pass-2 kernels: the whole route too
+            entry["route_ms"] = rows[0][5]
+        entry["more"] = [timed(r) for r in rows[1:]]
         kernels.append(entry)
     log(f"smoke wall {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

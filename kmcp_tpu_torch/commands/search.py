@@ -2,9 +2,9 @@
 one-block DB or a multi-block ``--block-screen --uniform-sigs`` DB.
 
 Port of kmcp_tpu/commands/search.py:74 ``run_search`` for the streaming
-path.  Searches the slice does not cover raise ``NotImplementedError``
-naming the ROADMAP item that will add them; nothing falls back to another
-engine.
+path, and of its ``iter_queries`` (:20) for single-end reads.  Searches the
+slice does not cover raise ``NotImplementedError`` naming the ROADMAP item
+that will add them; nothing falls back to another engine.
 """
 
 from __future__ import annotations
@@ -16,13 +16,21 @@ import time
 
 import torch
 
-from kmcp_tpu.commands.search import iter_queries
-from kmcp_tpu.index.format import find_db_dirs
-from kmcp_tpu.search.engine import SearchEngine, SearchOptions
-from kmcp_tpu.search.tsv import HEADER, write_stats
-from kmcp_tpu.seqio.fastx import xopen
-
+from ..index.format import find_db_dirs
+from ..search.engine import SearchEngine, SearchOptions
 from ..search.stream import TorchStreamSearcher, unsupported
+from ..search.tsv import HEADER, write_stats
+from ..seqio.fastx import read_fastx, xopen
+
+
+def iter_queries(files: list[str], read1: str | None = None,
+                 read2: str | None = None):
+    """Yield (id, seq, None) single-end queries from ``read1`` or ``read2``
+    (one of ``-1`` / ``-2`` alone), then ``files``, in order."""
+    first = read1 or read2
+    for file in ([first] if first else []) + list(files):
+        for rec in read_fastx(file):
+            yield rec.id, rec.seq, None
 
 
 def resolve_device(device) -> torch.device:
@@ -44,8 +52,6 @@ def run_search(
     out_file: str = "-",
     opt: SearchOptions | None = None,
     whole_file: bool = False,
-    use_filename: bool = False,
-    query_id: str = "",
     no_header_row: bool = False,
     device="cuda",
     verbose: bool = True,
@@ -59,10 +65,8 @@ def run_search(
     ``words`` and ``n_blocks``, the pass-2 kernel that ran (``pass2``,
     None for one block), the union screen's ``union_rows`` and the active
     (read, block) ``pairs`` of pass 2 (both 0 for one block)."""
-    # the object engine serves only reads over the dedup threshold, and
-    # always with the numpy counter
-    opt = dataclasses.replace(opt or SearchOptions(), backend="numpy",
-                              paired_fpr_buf=False)
+    # single-end: the object engine's FPR cache takes the single-end size
+    opt = dataclasses.replace(opt or SearchOptions(), paired_fpr_buf=False)
     if read1 and read2:
         raise NotImplementedError(
             "paired reads need paired streaming (ROADMAP A6)"
@@ -99,14 +103,12 @@ def run_search(
         )
     t0 = time.time()
     streamer = TorchStreamSearcher(engine, dev, pass2)
-    k_max = max(engine.dbs[0].info.ks)
     out = sys.stdout if out_file == "-" else xopen(out_file, "wt")
     try:
         if not no_header_row:
             out.write(HEADER)
         total, matched = streamer.run(
-            iter_queries(files or [], read1, read2, False, use_filename,
-                         query_id, k_max),
+            iter_queries(files or [], read1, read2),
             out,
         )
         write_stats(out, total, matched)

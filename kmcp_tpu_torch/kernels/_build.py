@@ -111,7 +111,7 @@ def get_lib() -> ctypes.CDLL:
             ]
             lib.kmcp_hash_loc.restype = i32
             lib.kmcp_count_mask.argtypes = [
-                vp, i32, vp, i32, i32, i32, vp, vp, vp, vp, vp,
+                vp, i32, i32, vp, i32, i32, i32, vp, vp, vp, vp, vp,
             ]
             lib.kmcp_count_mask.restype = i32
             lib.kmcp_pair_count.argtypes = [

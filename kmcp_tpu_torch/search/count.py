@@ -4,9 +4,11 @@
 Port of the dense count family kmcp_tpu/search/pallas_count.py:146
 ``make_pallas_count`` (ring, ``masked=``), :363
 ``make_pallas_count_resident`` and :488 ``make_pallas_count_masked``: one
-CUDA kernel, ``kmcp_tpu_torch/csrc/count_mask.cu``, serves all three and
-every row width.  Targets are in natural order (t = 32 w + j); the TPU's
-bit-major lane layout is not ported.  ``count_mask_plain`` is the same
+entry point, ``kmcp_tpu_torch/csrc/count_mask.cu``, serves all three and
+every row width, through two CUDA variants it picks from the shapes (a
+shared-memory row slice for wide rows of few rows, a gather for the
+rest).  Targets are in natural order (t = 32 w + j); the TPU's bit-major
+lane layout is not ported.  ``count_mask_plain`` is the same
 function in plain PyTorch, which CPU tensors take.
 
 Bloom words travel as int32 views of the uint32 words (torch lacks most
@@ -78,8 +80,9 @@ def count_mask(bits: torch.Tensor, loc: torch.Tensor, cthr: torch.Tensor,
     mask = torch.empty((B, W), dtype=torch.int32, device=bits.device)
     stream = torch.cuda.current_stream(bits.device).cuda_stream
     rc = get_lib().kmcp_count_mask(
-        bits.data_ptr(), W, loc.data_ptr(), B, K, h, cthr.data_ptr(),
-        thr.data_ptr(), counts.data_ptr(), mask.data_ptr(), stream,
+        bits.data_ptr(), W, bits.shape[0], loc.data_ptr(), B, K, h,
+        cthr.data_ptr(), thr.data_ptr(), counts.data_ptr(), mask.data_ptr(),
+        stream,
     )
     if rc != 0:
         raise RuntimeError(f"count_mask kernel launch failed: cuda error {rc}")

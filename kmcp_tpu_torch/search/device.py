@@ -8,9 +8,11 @@ non-sketch DBs.  The blocks live on ``device`` row-stacked as an int32 view
 dense count tail (device_step.py); a multi-block DB indexed with
 ``--block-screen --uniform-sigs`` takes the two-pass screened tail
 (screen.py) over the packed union table.  The threshold tables are built on
-the host in float64 exactly as the JAX package builds them
-(``build_cmin_table``, ``build_tmin_table``, the screen's theta band) and
-copied to the device.
+the host in float64 exactly as the JAX package builds them and copied to
+the device; the host arrays come from the port's copies of
+``build_cmin_table`` and ``build_tmin_table`` (device.py:56,78),
+``two_pass_ready`` and ``build_packed_union`` (device_screened.py:55,61)
+and ``_stack_blocks`` (device_step.py:990).
 """
 
 from __future__ import annotations
@@ -18,10 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from kmcp_tpu.search.device import build_cmin_table, build_tmin_table
-from kmcp_tpu.search.device_screened import build_packed_union, two_pass_ready
-from kmcp_tpu.search.device_step import _stack_blocks
-
+from ..index.format import read_block_union, read_block_union_header
 from .device_step import count_tail, target_floor
 from .group_count import gemm_slabs, s_pad_for
 from .hash_loc import hash_loc
@@ -31,6 +30,126 @@ MULTI_BLOCK_NEEDS = (
     "multi-block DBs stream on the device only when indexed with "
     "--block-screen --uniform-sigs and one hash (ROADMAP A5)"
 )
+
+
+def build_cmin_table(n_max: int, min_kmers: int, min_qcov: float,
+                     max_fpr: float, fpr_cache) -> np.ndarray:
+    """cmin[n] for n in 0..n_max (int32), the smallest count a read of n
+    k-mers must reach: max(min_kmers, min{c : c > n*min_qcov},
+    min{c : queryFPR(n, c) <= max_fpr}); cmin > n means 'cannot pass'.
+    Float64 compares, as the reference makes them."""
+    out = np.empty(n_max + 1, dtype=np.int32)
+    for n in range(n_max + 1):
+        # smallest c with c > n*min_qcov (exact float64 compare)
+        c_q = int(np.floor(n * min_qcov)) + 1
+        while not (float(c_q) > n * min_qcov):
+            c_q += 1
+        c = max(min_kmers, c_q)
+        # FPR is decreasing in c: advance until it passes (or exceeds n)
+        while c <= n and fpr_cache(n, c) > max_fpr:
+            c += 1
+        out[n] = c if c <= n else n + 1  # n+1 == impossible
+    return out
+
+
+def build_tmin_table(sizes: np.ndarray, min_tcov: float) -> np.ndarray:
+    """tmin[t]: smallest count with count/size >= min_tcov (float64)."""
+    if min_tcov <= 0:
+        return np.ones(len(sizes), dtype=np.int32)
+    out = np.empty(len(sizes), dtype=np.int32)
+    for i, s in enumerate(sizes):
+        c = int(np.ceil(float(s) * min_tcov))
+        while c / float(s) < min_tcov:
+            c += 1
+        while c > 0 and (c - 1) / float(s) >= min_tcov:
+            c -= 1
+        out[i] = max(c, 0)
+    return out
+
+
+def _screen_geometry(db):
+    """The shared union num_bits when a multi-block DB can run the two-pass
+    screened search, else None: one hash, every block carries a union
+    screen (index --block-screen) of one shared size, and the blocks share
+    a Bloom row count, so one location plane serves every block (index
+    --uniform-sigs forces both).  Reads only the union headers."""
+    if db.info.num_hashes != 1 or len(db.blocks) <= 1:
+        return None
+    n_bits = set()
+    for b in range(len(db.blocks)):
+        h = read_block_union_header(db.path, b)
+        if h is None:
+            return None
+        n_bits.add(h[0])
+    if len(n_bits) != 1:
+        return None
+    if len({blk.bits.shape[0] for blk in db.blocks}) != 1:
+        return None
+    return n_bits.pop()
+
+
+def two_pass_ready(db) -> bool:
+    """True when the two-pass screened search can serve this DB."""
+    return _screen_geometry(db) is not None
+
+
+def build_packed_union(db, n_blocks: int):
+    """(U_ext uint32 [num_bits+1, ceil(nb/32)], num_bits, fprs f64[nb]) or
+    None: bit g of row r = row r set in block g's union Bloom, so one
+    location plane probes every block's screen at once.  Needs the shared
+    geometry of _screen_geometry."""
+    nb_u = _screen_geometry(db)
+    if nb_u is None:
+        return None
+    us = [read_block_union(db.path, b) for b in range(n_blocks)]
+    Wu = -(-n_blocks // 32)
+    U = np.zeros((nb_u + 1, Wu), np.uint32)
+    fprs = []
+    for g, (words, _nb, fpr) in enumerate(us):
+        fprs.append(float(fpr))
+        bits = np.unpackbits(
+            words.view(np.uint8), bitorder="little", count=nb_u
+        ).astype(np.uint32)
+        U[:nb_u, g // 32] |= bits << np.uint32(g % 32)
+    return U, nb_u, np.asarray(fprs, dtype=np.float64)
+
+
+def _stack_blocks(db):
+    """Stack a DB's blocks into one [S_total+1, W] matrix (+ the zero
+    sentinel row) with flattened per-target metadata, padding lanes
+    included: (stacked_ext, names, indices, gsizes, sizes, total_rows,
+    w, row_offsets)."""
+    blocks = db.blocks
+    w_max = max(b.bits.shape[1] for b in blocks)
+    mats = []
+    names: list[str] = []
+    indices: list[int] = []
+    gsizes: list[int] = []
+    sizes: list[int] = []
+    row_offsets: list[int] = []
+    row_off = 0
+    for b in blocks:
+        row_offsets.append(row_off)
+        m = np.asarray(b.bits)
+        if m.shape[1] < w_max:
+            m = np.pad(m, ((0, 0), (0, w_max - m.shape[1])))
+        mats.append(m)
+        row_off += m.shape[0]
+        names.extend(b.meta.names)
+        indices.extend(b.meta.indices)
+        gsizes.extend(b.meta.gsizes)
+        sizes.extend(b.meta.sizes)
+        pad = w_max * 32 - b.meta.num_targets
+        if pad:
+            names.extend([""] * pad)
+            indices.extend([0] * pad)
+            gsizes.extend([0] * pad)
+            sizes.extend([0] * pad)
+    stacked = np.concatenate(mats, axis=0)
+    stacked = np.concatenate(
+        [stacked, np.zeros((1, w_max), dtype=np.uint32)], axis=0
+    )
+    return stacked, names, indices, gsizes, sizes, row_off, w_max, row_offsets
 
 
 def numpy_state(db, opt) -> dict:

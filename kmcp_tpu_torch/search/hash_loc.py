@@ -19,9 +19,8 @@ from __future__ import annotations
 
 import torch
 
-from kmcp_tpu.kmer.nthash import SEED_A, SEED_C, SEED_G, SEED_T
-
 from ..kernels._build import get_lib
+from ..kmer.nthash import SEED_A, SEED_C, SEED_G, SEED_T
 
 _U64 = (1 << 64) - 1
 _BIT63 = -(1 << 63)  # int64 with only bit 63 set: flips unsigned order

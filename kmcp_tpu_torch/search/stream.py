@@ -3,12 +3,13 @@ multi-block ``--block-screen --uniform-sigs`` DB.
 
 Port of kmcp_tpu/search/stream.py ``StreamSearcher`` (``__init__``,
 ``usable``, ``run``; :132-637) for its single-end, non-sketch device path
-(the dense tail for one block, the two-pass screened tail for several).
-The batching, padding, ``lmax`` rounding, 2-slots-per-read
-candidate budget, 4x overflow retry, ``lexsort`` order and the writers are
-the JAX streamer's; the writers, ``_unpack_result`` and
-``_pack_reads_matrix`` are imported from it unchanged.  Reads ship as
-ASCII rows.
+(the dense tail for one block, the two-pass screened tail for several),
+with the port's own copies of its helpers ``_unpack_result`` (:65, the
+``(meta, aux)`` layouts only), ``_pack_reads_matrix`` (:104),
+``_fmt_ratio_memo`` (:118) and its writers ``_write_native`` (:641) and
+``_write_python`` (:699).  The batching, padding, ``lmax`` rounding,
+2-slots-per-read candidate budget, 4x overflow retry, ``lexsort`` order and
+the row bytes are the JAX streamer's.  Reads ship as ASCII rows.
 
 Reads over the k-mer dedup threshold take the object-engine route, as in
 the JAX streamer (stream.py:565-584), here with the numpy counter; they are
@@ -23,17 +24,48 @@ from itertools import islice
 import numpy as np
 import torch
 
-from kmcp_tpu.kmer import native
-from kmcp_tpu.search.device_screened import two_pass_ready
-from kmcp_tpu.search.engine import QueryResult, SearchEngine
-from kmcp_tpu.search.stream import (
-    StreamSearcher,
-    _fmt_ratio_memo,
-    _pack_reads_matrix,
-    _unpack_result,
-)
+from ..kmer import native
+from .device import MULTI_BLOCK_NEEDS, TorchDeviceDB, two_pass_ready
+from .engine import QueryResult, SearchEngine
+from .tsv import write_results
 
-from .device import MULTI_BLOCK_NEEDS, TorchDeviceDB
+
+def _unpack_result(res, budget, nb, T):
+    """A search step's (meta int32, aux uint16) host arrays -> (n_cand, qi,
+    t, cnt, nk).  meta is [n, read_idx..., target_idx...] of 1 + 2*budget
+    ints (split ids, the screened tail) or [n, flat_idx...] of 1 + budget
+    (flat ids qi*T + t, the dense tail); aux is [budget + nb] = counts then
+    per-read k-mer counts.  On budget overflow returns (n_cand, None, ...):
+    the caller retries with a larger budget."""
+    meta, aux = res
+    n = int(meta[0])
+    if n > budget:
+        return n, None, None, None, None
+    cnt = aux[:n].astype(np.int64)
+    nk = aux[budget : budget + nb].astype(np.int64)
+    if meta.shape[0] >= 1 + 2 * budget:
+        return n, meta[1 : 1 + n], meta[1 + budget : 1 + budget + n], cnt, nk
+    idx = meta[1 : 1 + n]
+    return n, idx // T, idx % T, cnt, nk
+
+
+def _pack_reads_matrix(seqs, lens, lmax):
+    """Zero-padded row-major [B, lmax] uint8 read matrix."""
+    return native.pack_rows(seqs, lens, lmax)
+
+
+def _fmt_ratio_memo():
+    memo: dict[tuple[int, int], str] = {}
+
+    def fmt(a: int, b: int) -> str:
+        key = (a, b)
+        s = memo.get(key)
+        if s is None:
+            s = f"{a / b:.4f}"
+            memo[key] = s
+        return s
+
+    return fmt
 
 
 def unsupported(engine: SearchEngine, paired: bool = False) -> str | None:
@@ -61,12 +93,10 @@ def unsupported(engine: SearchEngine, paired: bool = False) -> str | None:
         return "kmer_dedup_threshold >= 65535 overflows the uint16 result"
     if len(db.blocks) == 1 and db.blocks[0].bits.shape[1] * 32 > 2**31 // 256:
         return "more than 2^23 targets overflow the int32 flat candidate ids"
-    if native.get_lib() is None:
-        return "the native library (TSV writer) is unavailable"
     return None
 
 
-class TorchStreamSearcher(StreamSearcher):
+class TorchStreamSearcher:
     """``pass2`` picks the screened tail's pass-2 kernel of a multi-block
     DB (TorchDeviceDB)."""
 
@@ -81,7 +111,7 @@ class TorchStreamSearcher(StreamSearcher):
         self.dev = TorchDeviceDB(self.db, self.opt, device, pass2)
         self.k = self.db.ks_desc[0]
         self.multi_k = len(self.db.ks_desc) > 1
-        self._fpr_tabs: dict[int, tuple] = {}
+        self._fpr_tabs: dict[int, dict] = {}
         self._tmeta_tab = None
         self._tname_tab = None
         self.slow_rows = 0  # reads searched by the object engine
@@ -199,3 +229,178 @@ class TorchStreamSearcher(StreamSearcher):
                 [str(int(g)) for g in dev.gsizes], str(self.k),
             )
         return matched
+
+    # ---------------------------------------------------------- writers
+
+    def _target_tabs(self):
+        if self._tmeta_tab is None:
+            dev = self.dev
+            name_map = self.opt.name_map
+            names = [
+                (name_map.get(n, n) if name_map else n).encode()
+                for n in dev.names
+            ]
+            self._tname_tab = native.make_strtab(names)
+            metas = [
+                (
+                    f"\t{int(ix) & 0xFFFF}\t{int(ix) >> 16}\t{int(g)}\t{self.k}\t"
+                ).encode()
+                for ix, g in zip(dev.indices, dev.gsizes)
+            ]
+            self._tmeta_tab = native.make_strtab(metas)
+        return self._tname_tab, self._tmeta_tab
+
+    def _fpr_tab(self, nmax: int, pairs: np.ndarray):
+        """Flat (nmax+1)^2 string table of %.4e query-FPR values, filled
+        lazily for the (n, c) pairs observed in the results."""
+        ent = self._fpr_tabs.get(nmax)
+        if ent is None:
+            ent = {
+                "strings": [b""] * ((nmax + 1) * (nmax + 1)),
+                "have": set(),
+                "tab": None,
+            }
+            self._fpr_tabs[nmax] = ent
+        qf = self.db.query_fpr
+        have = ent["have"]
+        strings = ent["strings"]
+        new = False
+        for p in np.unique(pairs).tolist():
+            if p in have:
+                continue
+            have.add(p)
+            n, c = divmod(p, nmax + 1)
+            strings[p] = f"{qf(n, c):.4e}".encode()
+            new = True
+        if new or ent["tab"] is None:
+            ent["tab"] = native.make_strtab(strings)
+        return ent["tab"]
+
+    def _write_native(
+        self, out, state, qi, t, cnt, hits, slow_set, slow_results, idx0
+    ):
+        """One kt_write_rows call per run of fast reads; slow reads'
+        pre-formatted rows interleave between runs."""
+        B = len(state["ids"])
+        flags = np.where(state["too_short"], 2, 0).astype(np.uint8)
+        for r in slow_set:
+            flags[r] = 1
+        qlen = state["qlen"]
+        nkmers = state["counts"]
+        ku = self.opt.keep_unmatched
+        tname_tab, tmeta_tab = self._target_tabs()
+        nmax = max(64, -(-int(nkmers.max(initial=1)) // 64) * 64)
+        pairs = nkmers[qi].astype(np.int64) * (nmax + 1) + cnt.astype(
+            np.int64
+        )
+        fpr_tab = self._fpr_tab(nmax, pairs)
+        qid_tab = native.make_strtab([s.encode() for s in state["ids"]])
+
+        if not slow_set:
+            data = native.write_rows(
+                qi, t, cnt, qlen, nkmers, hits, flags,
+                qid_tab, tname_tab, tmeta_tab,
+                self.dev.sizes, fpr_tab, nmax, idx0,
+                keep_unmatched=ku, k=self.k,
+            )
+            out.write(data.decode("utf-8", "surrogateescape"))
+            return
+
+        # segment at slow reads
+        row_starts = np.zeros(B + 1, dtype=np.int64)
+        np.cumsum(hits, out=row_starts[1:])
+        bounds = sorted(slow_set)
+        prev = 0
+        for sr in bounds + [B]:
+            if sr > prev:
+                r0, r1 = prev, sr
+                rows_lo, rows_hi = row_starts[r0], row_starts[r1]
+                sub_qid = native.make_strtab(
+                    [s.encode() for s in state["ids"][r0:r1]]
+                )
+                data = native.write_rows(
+                    qi[rows_lo:rows_hi] - r0, t[rows_lo:rows_hi],
+                    cnt[rows_lo:rows_hi],
+                    qlen[r0:r1], nkmers[r0:r1], hits[r0:r1],
+                    flags[r0:r1] & np.uint8(2),
+                    sub_qid, tname_tab, tmeta_tab,
+                    self.dev.sizes, fpr_tab, nmax, idx0 + r0,
+                    keep_unmatched=ku, k=self.k,
+                )
+                out.write(data.decode("utf-8", "surrogateescape"))
+            if sr < B:
+                qr = slow_results[sr]
+                qr.query_idx = idx0 + sr
+                write_results(out, [qr], self.opt.keep_unmatched)
+            prev = sr + 1
+
+    def _write_python(
+        self, out, state, qi, t, cnt, hits, slow_set, slow_results, idx0,
+        fmtq, fmtt, fpr_memo, names, chunk_idx_s, chunks_s, gsize_s, k_s,
+    ):
+        """The row writer of ``keep_top_scores`` (-n), in Python."""
+        opt = self.opt
+        db = self.db
+        sizes = self.dev.sizes
+        counts_host = state["counts"]
+        B = len(state["ids"])
+        w = out.write
+        pos = 0
+        top_n = opt.keep_top_scores
+        for r in range(B):
+            qid = state["ids"][r]
+            if r in slow_set:
+                qr = slow_results[r]
+                qr.query_idx = idx0 + r
+                write_results(out, [qr], opt.keep_unmatched)
+                continue
+            h = int(hits[r])
+            if h == 0:
+                if opt.keep_unmatched:
+                    nk = 0 if state["too_short"][r] else int(counts_host[r])
+                    w(
+                        f"{qid}\t{state['qlen'][r]}\t{nk}\t0\t0\t\t-1\t0"
+                        f"\t0\t{k_s}\t0\t0\t0\t0\t{idx0 + r}\n"
+                    )
+                continue
+            n = int(counts_host[r])
+            lo, hi_ = pos, pos + h
+            pos = hi_
+            rows = range(lo, hi_)
+            if top_n > 0:
+                rows = self._apply_top_n(cnt, lo, hi_, n, top_n)
+            h_out = str(len(rows))
+            prefix = f"{qid}\t{state['qlen'][r]}\t{n}\t"
+            suffix = f"\t{idx0 + r}\n"
+            for i in rows:
+                ti = int(t[i])
+                c = int(cnt[i])
+                fk = (n, c)
+                fs = fpr_memo.get(fk)
+                if fs is None:
+                    fs = f"{db.query_fpr(n, c):.4e}"
+                    fpr_memo[fk] = fs
+                size = int(sizes[ti])
+                w(
+                    prefix + fs + "\t" + h_out + "\t" + names[ti] + "\t"
+                    + chunk_idx_s[ti] + "\t" + chunks_s[ti] + "\t"
+                    + gsize_s[ti] + "\t" + k_s + "\t" + str(c) + "\t"
+                    + fmtq(c, n) + "\t" + fmtt(c, size) + "\t"
+                    + f"{c / (n + size - c):.4f}" + suffix
+                )
+
+    @staticmethod
+    def _apply_top_n(cnt, lo, hi, n, top_n):
+        """keep-top-scores truncation on the sorted slice: the reference's
+        loop."""
+        count = 0
+        p = 1024.0
+        i = lo
+        for i in range(lo, hi):
+            s = int(cnt[i]) / n
+            if s < p:
+                count += 1
+                if count > top_n:
+                    break
+                p = s
+        return range(lo, i + 1)

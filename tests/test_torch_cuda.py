@@ -86,6 +86,48 @@ def test_count_mask_kernel_matches_plain(cuda, W, K, h, B):
     assert torch.equal(counts, counts_p) and torch.equal(mask, mask_p)
 
 
+@pytest.mark.parametrize("W,S,K,h,B,variant", [
+    (13, 997, 37, 1, 300, 1),     # W not a multiple of the 8-word tile
+    (8, 997, 140, 2, 129, 1),     # one tile, a partial 128-read round
+    (4096, 3578, 140, 1, 40, 1),  # the wide main path's rows
+    (64, 500, 300, 3, 130, 1),    # K > 255: 16 planes
+    (16, 50, 66000, 1, 2, 1),     # K > 65,535: 32 planes
+    (24, 1000, 45, 4, 1, 1),      # h = 4, B = 1
+    (40, 20000, 140, 2, 70, 0),   # wide rows too many for shared memory
+    (1, 33_554, 140, 1, 1000, 0),  # pass 1's W = 1
+    (5, 99_991, 141, 3, 257, 0),  # narrow rows, K not a multiple of 8
+    (5, 997, 140, 1, 1, 0),       # B = 1
+])
+def test_count_mask_variants_match_plain(cuda, W, S, K, h, B, variant):
+    """Both K2' variants (1: shared-memory slice, 0: gather) against the
+    plain version, on words with bit 31 set, one read whose every window
+    is on the sentinel row and one whose windows hit an all-ones row."""
+    from kmcp_tpu_torch.kernels._build import get_lib
+
+    assert get_lib().kmcp_count_mask_variant(W, S + 1, h) == variant
+    rng = np.random.default_rng(W * 31 + K + h)
+    bits = rng.integers(0, 2**32, (S + 1, W), dtype=np.uint32)
+    bits |= np.uint32(1 << 31)
+    bits[0] = 0xFFFFFFFF
+    bits[-1] = 0
+    loc = rng.integers(0, S + 1, (B, K, h)).astype(np.int32)
+    loc[0] = S
+    if B > 1:
+        loc[1] = 0
+    thr = rng.integers(0, K + 2, 32 * W).astype(np.int32)
+    thr[-3:] = FLOOR_NEVER
+    cthr = rng.integers(0, K + 2, B).astype(np.int32)
+    args = [torch.from_numpy(a).to(cuda) for a in
+            (bits.view(np.int32), loc, cthr, thr)]
+    counts, mask = count_mask(*args)
+    counts_p, mask_p = count_mask_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(counts, counts_p) and torch.equal(mask, mask_p)
+    assert not counts[0].any()
+    if B > 1:
+        assert (counts[1] == K).all() and (mask != 0).any()
+
+
 def test_count_tail_cuda_matches_cpu(cuda):
     """The whole tail (thresholds, chunked K2', compaction, layout) on the
     card equals the CPU run of the plain versions."""

@@ -15,6 +15,7 @@ from kmcp_tpu.kmer import native
 from kmcp_tpu.search.device import DeviceDB
 from kmcp_tpu.search.engine import SearchEngine, SearchOptions
 from kmcp_tpu_torch.commands.search import run_search
+from kmcp_tpu_torch.search import engine as port_engine
 from kmcp_tpu_torch.search.device import TorchDeviceDB
 from kmcp_tpu_torch.search.stream import TorchStreamSearcher
 
@@ -57,8 +58,9 @@ def screened_reads(rng, genomes, n=256):
 
 
 def port_tsv(db, reads, pass2, **opt_kw):
-    opt = SearchOptions(batch_size=128, **opt_kw)
-    st = TorchStreamSearcher(SearchEngine([db], opt), "cpu", pass2)
+    opt = port_engine.SearchOptions(batch_size=128, **opt_kw)
+    st = TorchStreamSearcher(port_engine.SearchEngine([db], opt), "cpu",
+                             pass2)
     buf = io.StringIO()
     total, _ = st.run(iter(reads), buf)
     assert total == len(reads)
@@ -132,7 +134,8 @@ def test_run_search_screened_stats(tmp_path):
     assert stats["n_blocks"] == 3 and stats["pass2"] == "gemm"
     assert stats["union_rows"] > 0 and stats["rows"] % 3 == 0
     with pytest.raises(ValueError, match="256"):
-        run_search(db, [str(fq)], opt=SearchOptions(kmer_dedup_threshold=300),
+        run_search(db, [str(fq)],
+                   opt=port_engine.SearchOptions(kmer_dedup_threshold=300),
                    device="cpu", verbose=False, pass2="gemm")
 
 

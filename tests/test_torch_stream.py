@@ -17,6 +17,7 @@ from kmcp_tpu.kmer import native
 from kmcp_tpu.search.engine import SearchEngine, SearchOptions
 from kmcp_tpu.search.stream import StreamSearcher
 from kmcp_tpu_torch.commands.search import run_search
+from kmcp_tpu_torch.search import engine as port_engine
 from kmcp_tpu_torch.search.stream import TorchStreamSearcher, unsupported
 
 torch.set_num_threads(1)
@@ -63,14 +64,16 @@ def mixed_reads(rng, genomes, n=300):
 
 
 def stream_tsv(db, reads, backend=None, **opt_kw):
-    """TSV body of one streaming run: the port on the CPU when backend is
-    None, else kmcp_tpu's StreamSearcher with that backend."""
-    opt = SearchOptions(backend=backend or "numpy", batch_size=128, **opt_kw)
-    eng = SearchEngine([db], opt)
+    """TSV body of one streaming run: the port (its own engine) on the CPU
+    when backend is None, else kmcp_tpu's StreamSearcher with that
+    backend."""
     buf = io.StringIO()
     if backend is None:
-        st = TorchStreamSearcher(eng, "cpu")
+        opt = port_engine.SearchOptions(batch_size=128, **opt_kw)
+        st = TorchStreamSearcher(port_engine.SearchEngine([db], opt), "cpu")
     else:
+        opt = SearchOptions(backend=backend, batch_size=128, **opt_kw)
+        eng = SearchEngine([db], opt)
         assert StreamSearcher.usable(eng)
         st = StreamSearcher(eng)
     total, _ = st.run(iter(reads), buf)
@@ -156,8 +159,8 @@ def test_min_target_cov_matches_numpy_engine(tmp_path):
         for rid, seq, _ in mixed_reads(rng, genomes, 100):
             f.write(f"@{rid}\n{seq.decode()}\n+\n{'I' * len(seq)}\n")
     run_search(db, [str(fq)], out_file=str(tmp_path / "t.tsv"),
-               opt=SearchOptions(min_target_cov=0.01), device="cpu",
-               verbose=False)
+               opt=port_engine.SearchOptions(min_target_cov=0.01),
+               device="cpu", verbose=False)
     run_search_host(db, [str(fq)], out_file=str(tmp_path / "n.tsv"),
                     opt=SearchOptions(min_target_cov=0.01), verbose=False)
     got = (tmp_path / "t.tsv").read_bytes()
@@ -185,12 +188,12 @@ def test_unsupported_searches_raise(tmp_path, monkeypatch):
                        match="--block-screen --uniform-sigs"):
         run_search(multi, q, device="cpu", verbose=False)
     with pytest.raises(NotImplementedError, match="A8"):
-        run_search(db, q, opt=SearchOptions(low_mem=True), device="cpu",
-                   verbose=False)
+        run_search(db, q, opt=port_engine.SearchOptions(low_mem=True),
+                   device="cpu", verbose=False)
     with pytest.raises(NotImplementedError, match="A8"):
-        run_search(db, q, opt=SearchOptions(sort_by="jacc"), device="cpu",
-                   verbose=False)
-    eng = SearchEngine([db], SearchOptions())
+        run_search(db, q, opt=port_engine.SearchOptions(sort_by="jacc"),
+                   device="cpu", verbose=False)
+    eng = port_engine.SearchEngine([db], port_engine.SearchOptions())
     assert unsupported(eng) is None
     eng.dbs[0].is_sketch = True
     assert "A7" in unsupported(eng)
