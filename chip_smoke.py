@@ -18,11 +18,11 @@ Phases (each prints one status line; any failure raises, exit non-zero):
      pass-2 kernels K5' pair_count and K6' group_count at 32 and 128
      blocks of 4,096 targets (random bits, 3,578 rows per block, 20,480 and
      36,864 pairs of a 16,384-read batch), each exactly equal to its plain
-     PyTorch version (K6' also to K5''s counts); CUDA event times, median
-     of 5 after a warm-up, of the kernels, the plain versions and each
-     pass-2 route as the tail runs it (K5' + compaction; U build + K6' +
-     floors + compaction); each kernel's bound (``bound``) from this run's
-     inputs; and for K6' the one PyTorch call that computes the same
+     PyTorch version (K6' also to K5''s counts and mask); CUDA event
+     times, median of 5 after a warm-up, of the kernels (their block sort
+     included), the plain versions and each pass-2 route as the tail runs
+     it (kernel + compaction); each kernel's bound (``bound``) from this
+     run's inputs; and for K6' the one PyTorch call that computes the same
      grouped product (``torch._grouped_mm`` in bf16), timed as a yardstick
      and used nowhere in the port;
   4. main path: a 131,072-target single-block wide DB (2,048 synthetic
@@ -42,14 +42,15 @@ Phases (each prints one status line; any failure raises, exit non-zero):
   6. the screened main path: phase 4's 2,048 x 64 chunks indexed again with
      ``--tpu-native --block-screen --uniform-sigs`` (32 blocks of 4,096
      targets with union screens), the same 65,536 reads searched on the
-     card with pass2="gemm" and pass2="pair"; both TSVs byte-identical to
-     the port's ``--device cpu`` run (pass2="pair": the plain pair count
-     is cheap on the CPU, as only active pairs are counted), every source
-     read best-hits its genome, hash_loc and count_mask (pass 1) launch in
-     both runs, group_count only in the first and pair_count only in the
-     second, and no read takes the object engine; then a rerun of each
-     with stage timers (a synchronised host clock) gives the time by
-     stage.
+     card with pass2="gemm", "pair" and "auto" (``screen.pass2_kernel``);
+     every TSV byte-identical to the port's ``--device cpu`` run
+     (pass2="pair": the plain pair count is cheap on the CPU, as only
+     active pairs are counted), every source read best-hits its genome,
+     hash_loc and count_mask (pass 1) launch in every run, group_count
+     only where the run's pass-2 kernel is "gemm" and pair_count only
+     where it is "pair", and no read takes the object engine; then a
+     rerun of the gemm and pair runs with stage timers (a synchronised
+     host clock) gives the time by stage.
 Every main-path run sets all four kernels' launch counts to 0 just before
 it and reads them just after.
 Then one JSON line of kernel results, the card's name and power limit, and
@@ -84,9 +85,10 @@ BLOCK_TARGETS = 4096  # targets per block of phase 6's screened DB
 
 
 # One NVIDIA H100 SXM (data sheet, dense, at its 700 W limit): HBM rate and
-# the bf16 tensor-core rate.
+# the tensor-core rates in bf16 and int8.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+INT8_OP_PER_S = 1979e12
 
 
 def log(msg: str):
@@ -120,13 +122,14 @@ def time_ms(torch, fn, reps: int = 5) -> float:
     return float(np.median(times))
 
 
-def bound(nbytes: float, flops: float = 0.0) -> tuple[float, str]:
+def bound(nbytes: float, flops: float = 0.0,
+          rate: float = BF16_FLOP_PER_S) -> tuple[float, str]:
     """(bound_ms, bound_by): the least time the card could take for work
     that moves ``nbytes`` (each input read once, each output written once)
-    and does ``flops`` bf16 tensor-core operations; the larger of the two
-    times, and which of them it is."""
+    and does ``flops`` tensor-core operations at ``rate`` a second; the
+    larger of the two times, and which of them it is."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    t_ops = flops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -272,15 +275,13 @@ def phase_pass2(torch, dev) -> dict:
     their plain versions at 32 and 128 blocks of 4,096 targets (s_block =
     3,578 rows of random bits, 140 windows per read, 5% of them invalid),
     on 20,480 and 36,864 read-major pairs of a 16,384-read batch (bits of
-    density 1/4, so a pair's counts sit near 33); K6' is
-    fed the block-sorted tiles and U the tail builds, and must also equal
-    K5''s counts.  Each pass-2 route is also timed whole, as the tail runs
-    it."""
+    density 1/4, so a pair's counts sit near 33); K6' (the same pairs, the
+    same floors) must also equal K5''s counts and mask.  Each pass-2 route
+    is also timed whole, as the tail runs it."""
     from kmcp_tpu_torch.search import screen
     from kmcp_tpu_torch.search.device_step import FLOOR_NEVER
     from kmcp_tpu_torch.search.group_count import (
-        TILE, block_tiles, build_u, gemm_slabs, group_count,
-        group_count_plain, s_pad_for,
+        gemm_slabs, group_count, group_count_plain, s_pad_for,
     )
     from kmcp_tpu_torch.search.pair_count import pair_count, pair_count_plain
 
@@ -308,6 +309,7 @@ def phase_pass2(torch, dev) -> dict:
         thr_np[:, -7:] = FLOOR_NEVER  # padding lanes
         thr = as_dev(thr_np)
         label = f"nb={nb} P={P}"
+        chunk = screen.pass2_chunk(32 * W)
 
         args = (bits, loc, pb, pg, cthr, thr)
         counts, mask = pair_count(*args)
@@ -321,81 +323,94 @@ def phase_pass2(torch, dev) -> dict:
         del counts_p, mask_p
         ms = time_ms(torch, lambda: pair_count(*args, rows_checked=True))
         ms_p = time_ms(torch, lambda: pair_count_plain(*args))
-        chunk = screen.pass2_chunk(32 * W)
         route = time_ms(torch, lambda: screen._pass2_pair(
             bits, loc, pb, pg, cthr, thr, chunk))
         # each pair reads its read's locations and the block rows they hit
         reads_used = torch.unique(pb).numel()
+        blocks_used = torch.unique(pg).numel()
         rows = torch.unique(pg.long()[:, None] * (s_block + 1)
                             + loc[pb.long()]).numel()
         bd = bound(rows * W * 4 + reads_used * (Kw + 1) * 4
-                   + torch.unique(pg).numel() * 32 * W * 4
-                   + nbytes(pb, pg, counts, mask))
+                   + blocks_used * 32 * W * 4 + nbytes(pb, pg, counts, mask))
         log(f"phase 3 pair_count [{label}] s_block={s_block} W={W} K={Kw}: "
             f"exact (max abs err 0, {n_set} mask words set); kernel "
-            f"{ms:.3f} ms, plain {ms_p:.3f} ms, bound {bd[0]:.4f} ms "
-            f"({bd[1]}); route (K5' + compaction) {route:.3f} ms")
+            f"{ms:.3f} ms (block sort included), plain {ms_p:.3f} ms, bound "
+            f"{bd[0]:.4f} ms ({bd[1]}); route (K5' + compaction) "
+            f"{route:.3f} ms")
         res["pair_count"].append((label, err, ms, ms_p, bd, route))
 
         bits01 = gemm_slabs(bits, nb, s_block, S_pad)
-        slot, blk = block_tiles(pg, nb)
-        rows = torch.full((TILE * blk.shape[0],), B, dtype=torch.int64,
-                          device=dev)
-        rows[slot] = pb.long()
-        loc_ext = torch.cat([loc, loc.new_full((1, Kw), s_block)])
-        u = build_u(loc_ext[rows], S_pad)
-        got = group_count(bits01, u, blk)
-        want = group_count_plain(bits01, u, blk)
+        args6 = (bits01, loc, pb, pg, cthr, thr, s_block)
+        got = group_count(*args6)
+        want = group_count_plain(*args6)
         torch.cuda.synchronize()
-        err6 = max(max_abs_err(torch, got, want),
-                   max_abs_err(torch, got[slot], counts))
+        err6 = max(max_abs_err(torch, got[0], want[0]),
+                   max_abs_err(torch, got[1], want[1]),
+                   max_abs_err(torch, got[0], counts),
+                   max_abs_err(torch, got[1], mask))
         if err6:
             raise AssertionError(f"group_count {label}: max abs err {err6}")
-        del want, counts, mask
-        ms6 = time_ms(torch, lambda: group_count(bits01, u, blk))
-        ms6_p = time_ms(torch, lambda: group_count_plain(bits01, u, blk))
-        ms_u = time_ms(torch, lambda: build_u(loc_ext[rows], S_pad))
-        chunk = screen.pass2_chunk(32 * W, S_pad)
+        del want
+        ms6 = time_ms(torch, lambda: group_count(*args6, rows_checked=True))
+        ms6_p = time_ms(torch, lambda: group_count_plain(*args6))
         route6 = time_ms(torch, lambda: screen._pass2_gemm(
             bits01, loc, pb, pg, cthr, thr, s_block, chunk))
-        flops = 2.0 * u.shape[0] * S_pad * 32 * W
-        slab = S_pad * 32 * W  # int8 bytes of one block's slab
-        bd = bound(torch.unique(blk).numel() * slab + nbytes(u, blk, got),
-                   flops)
-        lib_ms, lib_err = grouped_mm_yardstick(torch, bits01, u, blk, got)
-        log(f"phase 3 group_count [{label}] P_pad={u.shape[0]} "
-            f"S_pad={S_pad} T={32 * W}: exact (max abs err 0 vs plain and "
-            f"vs pair_count); kernel {ms6:.3f} ms ({flops / ms6 / 1e9:.1f} "
-            f"TFLOP/s), plain {ms6_p:.3f} ms, bound {bd[0]:.4f} ms "
+        # the dense product of the real pairs, whatever pads them
+        flops = 2.0 * P * S_pad * 32 * W  # u8 x u8 -> s32 operations
+        slab = S_pad * 32 * W  # u8 bytes of one block's slab
+        bd = bound(blocks_used * slab + reads_used * Kw * 4
+                   + nbytes(pb, pg, cthr, thr, *got), flops, INT8_OP_PER_S)
+        lib_ms, lib_err = grouped_mm_yardstick(torch, bits01, loc, pb, pg,
+                                               S_pad, got[0])
+        log(f"phase 3 group_count [{label}] S_pad={S_pad} "
+            f"T={32 * W}: exact (max abs err 0 vs plain and vs pair_count); "
+            f"kernel {ms6:.3f} ms ({flops / ms6 / 1e9:.1f} TOP/s; block "
+            f"sort included), plain {ms6_p:.3f} ms, bound {bd[0]:.4f} ms "
             f"({bd[1]}), torch._grouped_mm bf16 {lib_ms:.3f} ms (max abs "
-            f"err {lib_err} vs K6'); U build {ms_u:.3f} ms; route (U build "
-            f"+ K6' + floors + compaction) {route6:.3f} ms")
+            f"err {lib_err} vs K6'); route (K6' + compaction) "
+            f"{route6:.3f} ms")
         res["group_count"].append((label, err6, ms6, ms6_p, bd, route6,
                                    lib_ms))
-        del bits, bits01, u, got, loc_ext, rows
+        del bits, bits01, got, counts, mask
         torch.cuda.empty_cache()
     return res
 
 
-def grouped_mm_yardstick(torch, bits01, u, blk, got) -> tuple[float, int]:
+def grouped_mm_yardstick(torch, bits01, loc, pb, pg, S_pad, want
+                         ) -> tuple[float, int]:
     """The one PyTorch call that computes K6''s grouped product on the same
-    inputs: ``torch._grouped_mm`` of U bf16 [P_pad, S_pad] (rows grouped by
-    block, in block order) by the 0/1 slabs in bf16, with the per-block row
-    ends as offsets.  Its bf16 output holds the counts exactly (< 256).
+    inputs: ``torch._grouped_mm`` of U bf16 [P_pad, S_pad] (the pairs'
+    rows grouped by block, each block padded to whole tiles of 128) by the
+    0/1 slabs in bf16 [nb, S_pad, T] (column-major), with the per-block
+    row ends as offsets.  Its bf16 output holds the counts exactly (< 256).
     Returns (median ms, max abs err against K6''s counts)."""
+    from kmcp_tpu_torch.search.group_count import TILE, build_u, slab_dense
+    from kmcp_tpu_torch.search.pair_count import block_order
+
     nb = bits01.shape[0]
+    T = want.shape[1]
+    order, seg = block_order(pg, nb)
+    cnt = (seg[1:] - seg[:-1]).long()
+    padded = (cnt + TILE - 1) // TILE * TILE
+    base = torch.cumsum(padded, 0) - padded  # each block's first row
+    g_s = pg[order.long()].long()
+    slot = base[g_s] + torch.arange(order.shape[0], device=pg.device) - (
+        seg[:-1].long()[g_s])
+    rows = torch.full((int(padded.sum()),), loc.shape[0], dtype=torch.long,
+                      device=pg.device)
+    rows[slot] = pb.long()[order.long()]
+    loc_ext = torch.cat([loc, loc.new_full((1, loc.shape[1]), S_pad - 1)])
+    u = build_u(loc_ext[rows], S_pad)
     # [nb, T, S_pad] contiguous, seen as [nb, S_pad, T]: the column-major
     # right operand the grouped GEMM takes
-    slabs = bits01.transpose(1, 2).contiguous().to(torch.bfloat16)
-    slabs = slabs.transpose(1, 2)
-    rows_per_block = torch.bincount(blk.long(), minlength=nb) * (
-        u.shape[0] // blk.shape[0])
-    offs = torch.cumsum(rows_per_block, 0).to(torch.int32)
+    slabs = torch.stack([slab_dense(bits01, g)[:S_pad, :T].t().to(
+        torch.bfloat16) for g in range(nb)]).transpose(1, 2)
+    offs = torch.cumsum(padded, 0).to(torch.int32)
     out = torch._grouped_mm(u, slabs, offs=offs)
     torch.cuda.synchronize()
-    err = max_abs_err(torch, out.to(torch.int32), got)
+    err = max_abs_err(torch, out[slot].to(torch.int32), want[order.long()])
     ms = time_ms(torch, lambda: torch._grouped_mm(u, slabs, offs=offs))
-    del slabs, out
+    del slabs, out, u
     return ms, err
 
 
@@ -600,9 +615,9 @@ def stage_timers(torch, acc: dict):
     the functions it calls: the DB set-up (host arrays, of which the union
     screens' packing, then the upload; the engine's open and check before
     it, and the streamer set-up around it), the device hash, the dense
-    tail and its K2' launches, or the screened pass 1, U build, pass-2
-    kernels, whole pass-2 routes and packing with its D2H copy, and the
-    TSV writer; seconds accumulate in ``acc``."""
+    tail and its K2' launches, or the screened pass 1, pass-2 kernels,
+    whole pass-2 routes and packing with its D2H copy, and the TSV writer;
+    seconds accumulate in ``acc``."""
     from kmcp_tpu_torch.commands import search as command
     from kmcp_tpu_torch.search import device, device_step, screen
     from kmcp_tpu_torch.search.stream import TorchStreamSearcher
@@ -617,7 +632,6 @@ def stage_timers(torch, acc: dict):
                (device, "count_tail", "dense_tail"),
                (device_step, "count_mask", "dense_count_kernel"),
                (screen, "active_pairs", "pass1"),
-               (screen, "build_u", "u_build"),
                (screen, "pair_count", "pass2_kernel"),
                (screen, "group_count", "pass2_kernel"),
                (screen, "_pass2_pair", "pass2_route"),
@@ -647,10 +661,13 @@ def stage_timers(torch, acc: dict):
 
 def phase_screened(torch, dev, ks: str, reads: str, n_source: int) -> dict:
     """Phase 6: the screened main path on a 32-block DB of phase 4's
-    chunks, pass2="gemm" and "pair" on the card against the port's CPU run
-    (pass2="pair"); then a stage-timed run of each route."""
+    chunks, pass2="gemm", "pair" and "auto" on the card against the port's
+    CPU run (pass2="pair"); then a stage-timed run of the gemm and pair
+    routes."""
     from kmcp_tpu_torch.cli import main as cli
     from kmcp_tpu_torch.commands.search import run_search
+    from kmcp_tpu_torch.search.engine import SearchOptions
+    from kmcp_tpu_torch.search.screen import pass2_kernel
 
     db = os.path.join(SCRATCH, "screened", "db")
     t0 = time.time()
@@ -671,7 +688,8 @@ def phase_screened(torch, dev, ks: str, reads: str, n_source: int) -> dict:
         return {"tsv": tsv, "out": out, "stats": stats, "wall": wall,
                 "totals": totals, "launches": launches}
 
-    runs = {p: search(p, dev, f"{dev.type}.{p}") for p in ("gemm", "pair")}
+    runs = {p: search(p, dev, f"{dev.type}.{p}")
+            for p in ("gemm", "pair", "auto")}
     ref = search("pair", "cpu", "cpu.pair")
     if any(ref["launches"].values()):
         raise AssertionError("phase 6: the CPU run launched a kernel")
@@ -679,18 +697,21 @@ def phase_screened(torch, dev, ks: str, reads: str, n_source: int) -> dict:
     if st["n_blocks"] < 2 or st["pass2"] != "pair":
         raise AssertionError(f"phase 6: not a screened run: {st}")
     rows_per_block = st["rows"] // st["n_blocks"]
+    auto = pass2_kernel(st["n_blocks"], st["words"], rows_per_block,
+                        SearchOptions().kmer_dedup_threshold)
     for p2, run in runs.items():
         tag = f"phase 6 screened {p2}"
+        want = auto if p2 == "auto" else p2
         if run["tsv"] != ref["tsv"]:
             raise AssertionError(f"{tag}: TSV differs from the CPU run")
         if run["totals"] != ref["totals"] or run["totals"][0] != N_READS:
             raise AssertionError(f"{tag}: totals {run['totals']} vs "
                                  f"{ref['totals']}")
         check_best_hits(run["out"], n_source)
-        if run["stats"]["pass2"] != p2 or run["stats"]["slow_rows"]:
+        if run["stats"]["pass2"] != want or run["stats"]["slow_rows"]:
             raise AssertionError(f"{tag}: stats {run['stats']}")
-        other = "pair_count" if p2 == "gemm" else "group_count"
-        mine = "group_count" if p2 == "gemm" else "pair_count"
+        other = "pair_count" if want == "gemm" else "group_count"
+        mine = "group_count" if want == "gemm" else "pair_count"
         la = run["launches"]
         launched = min(la["hash_loc"], la["count_mask"], la[mine]) > 0
         if (dev.type == "cuda" and not launched) or la[other]:
@@ -716,8 +737,7 @@ def phase_screened(torch, dev, ks: str, reads: str, n_source: int) -> dict:
         if run["tsv"] != ref["tsv"]:
             raise AssertionError(f"phase 6 timed {p2}: TSV differs")
         acc["compaction"] = (acc.pop("pass2_route")
-                             - acc.get("pass2_kernel", 0.0)
-                             - acc.get("u_build", 0.0))
+                             - acc.get("pass2_kernel", 0.0))
         breakdown[p2] = acc
         log(f"phase 6 stages {p2} (synchronised host clock, s): "
             + ", ".join(f"{k} {v:.4f}" for k, v in acc.items())
@@ -794,8 +814,8 @@ def main() -> int:
         rows = kern[name]
         by_path = {"phase 4 wide": wide["launches"][name],
                    "phase 5 narrow": narrow["launches"][name],
-                   "phase 6 gemm": screened["launches"]["gemm"][name],
-                   "phase 6 pair": screened["launches"]["pair"][name]}
+                   **{f"phase 6 {p}": n[name]
+                      for p, n in screened["launches"].items()}}
 
         def timed(r) -> dict:
             # only K6' has a one-call library counterpart

@@ -20,9 +20,10 @@
 // dependent 4-byte load in flight, ran at about 5% of that bound.  Two
 // variants, chosen in kmcp_count_mask:
 //
-// - slice (W >= 8 and the tile's rows fit in shared memory, about 4,800
-//   rows at h = 1): a CTA owns one tile of 8 words (256 targets) and copies
-//   that tile of every row, the sentinel included, into shared memory once;
+// - slice (W >= 8 and the tile's rows fit in shared memory: up to 4,054
+//   rows and the sentinel at h = 1 on an H100's 227 KB): a CTA owns one
+//   tile of 8 words (256 targets) and copies that tile of every row, the
+//   sentinel included, into shared memory once;
 //   1,024 threads then run rounds of 128 reads x 8 words against it, so
 //   every gathered word is a shared-memory load and the matrix is read from
 //   device memory once per CTA.  The reads' locations come in chunks of 64
@@ -49,60 +50,17 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "bitslice.cuh"
+#include "slice.cuh"
 
 namespace {
 
-constexpr int WT = 8;             // words per tile of the slice variant
-constexpr int SLICE_READS = 128;  // reads a slice CTA runs at once
-constexpr int SLICE_THREADS = SLICE_READS * WT;
+using slice::SLICE_THREADS;
+using slice::WT;
+
 constexpr int GATHER_THREADS = 128;
 
-// Shared memory of a slice CTA, in 4-byte words.
-constexpr int STAGE_WORDS = SLICE_THREADS / 32 * 4 * 64;  // 1 KB a warp
-
-// Windows of locations staged at a time: 64 at h = 1 (3-5% faster than 32
-// at the wide shape, as there are half the barriers), else 32.
-__host__ __device__ constexpr int kc_for(int h) { return h == 1 ? 64 : 32; }
-__host__ __device__ constexpr int sloc_pitch(int h) {
-  return kc_for(h) * h + 4;
-}
-
-size_t slice_smem(int S_ext, int h) {
-  return ((size_t)S_ext * WT + WT * 8 + WT + 2 * SLICE_READS * sloc_pitch(h) +
-          STAGE_WORDS) * 4;
-}
-
-// 16 bytes global -> shared, asynchronously (Ampere+ cp.async, L2 only).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Counts of 4 targets (bytes) >= 4 byte floors -> 4 mask bits.
-__device__ __forceinline__ uint32_t mask4(uint32_t counts4, uint32_t thr4,
-                                          uint32_t floor4) {
-  const uint32_t ge =
-      __vcmpgeu4(counts4, thr4) & __vcmpgeu4(counts4, floor4);
-  return ((ge & 0x80808080u) * 0x00204081u) >> 28;
-}
-
-// The slice variant (see the top of the file).  A CTA runs rounds of 128
-// reads of its read range against its 8-word tile; the reads' locations
-// come in chunks of KC windows, double-buffered in shared memory (plane
-// major, pre-scaled to the tile's row pitch), each chunk's global loads
-// issued before the current chunk's counting, one barrier a chunk.  With
-// counts below 256 (NL = 8) the epilogue transposes the planes to byte
-// counts, compares four targets at once, and writes the counts through a
-// per-warp stage in shared memory so that a warp stores 512 contiguous
-// bytes per instruction.
+// The slice variant (slice.cuh): CTA (x, y) counts word tile x of every row
+// for reads y * reads_per_cta onwards.
 template <int NL, int H>
 __global__ void __launch_bounds__(SLICE_THREADS)
 count_mask_slice(const uint32_t* __restrict__ bits, int W, int S_ext,
@@ -111,177 +69,12 @@ count_mask_slice(const uint32_t* __restrict__ bits, int W, int S_ext,
                  const int32_t* __restrict__ thr,
                  int32_t* __restrict__ counts, uint32_t* __restrict__ mask,
                  int reads_per_cta) {
-  constexpr int KC = kc_for(H);
-  constexpr int PITCH = sloc_pitch(H);
-  constexpr int PRE = SLICE_READS * KC * H / SLICE_THREADS;  // loads a chunk
   extern __shared__ __align__(16) uint32_t smem[];
-  uint32_t* slice = smem;                           // [S_ext][WT]
-  uint32_t* sthr8 = slice + (size_t)S_ext * WT;     // [WT][8] byte floors
-  uint32_t* snever = sthr8 + WT * 8;                // [WT] floors > 255
-  int32_t* sloc = reinterpret_cast<int32_t*>(snever + WT);  // [2][reads][PITCH]
-  uint32_t* stage = reinterpret_cast<uint32_t*>(sloc + 2 * SLICE_READS * PITCH);
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int w0 = blockIdx.x * WT;
-  const int nw = min(WT, W - w0);
-  // the tile of every row: with whole 16-byte halves in device memory, as
-  // asynchronous 16-byte copies, all in flight while the floors and the
-  // first locations load; else word by word
-  const bool async = nw == WT && W % 4 == 0 &&
-                     (reinterpret_cast<uintptr_t>(bits) & 15) == 0;
-  if (async) {
-    for (int e = tid; e < S_ext * 2; e += SLICE_THREADS)
-      cp_async16(slice + e * 4, bits + (size_t)(e >> 1) * W + w0 + (e & 1) * 4);
-    cp_async_commit();
-  } else {
-    for (int e = tid; e < S_ext * WT; e += SLICE_THREADS) {
-      const int r = e / WT, w = e % WT;
-      slice[e] = w < nw ? __ldg(bits + (size_t)r * W + w0 + w) : 0u;
-    }
-  }
-  if (tid < WT * 8) {  // word w, targets 4k..4k+3 of it
-    const int w = tid / 8, k = tid % 8;
-    uint32_t t4 = 0, nev = 0;
-    for (int e = 0; e < 4; ++e) {
-      const int t = w < nw ? __ldg(thr + (size_t)(w0 + w) * 32 + 4 * k + e)
-                           : 0;
-      t4 |= (uint32_t)min(max(t, 0), 255) << (8 * e);
-      nev |= (uint32_t)(t > 255) << (4 * k + e);
-    }
-    sthr8[tid] = t4;
-    nev |= __shfl_xor_sync(0xffffffffu, nev, 1);
-    nev |= __shfl_xor_sync(0xffffffffu, nev, 2);
-    nev |= __shfl_xor_sync(0xffffffffu, nev, 4);
-    if (k == 0) snever[w] = nev;
-  }
-
-  const int rr = tid / WT, w = tid % WT;
   const int b_lo = blockIdx.y * reads_per_cta;
-  const int b_hi = min(B, b_lo + reads_per_cta);
-  const int n_chunks = max(1, (K + KC - 1) / KC);
-  const int n_steps = (b_hi - b_lo + SLICE_READS - 1) / SLICE_READS * n_chunks;
-
-  // chunk s: the locations of round s / n_chunks, windows of chunk
-  // s % n_chunks, into registers, then into buffer s & 1.  Element e of a
-  // chunk is (read e / (KC H), window and hash e % (KC H)), so the index
-  // math divides by constants; windows past K are skipped.
-  int32_t pre[PRE];
-  auto fetch = [&](int s) {
-    const int b0 = b_lo + s / n_chunks * SLICE_READS;
-    const int k0 = s % n_chunks * KC;
-    const int nr = min(SLICE_READS, b_hi - b0), kc = K - k0;
-#pragma unroll
-    for (int m = 0; m < PRE; ++m) {
-      const int e = tid + m * SLICE_THREADS;
-      const int r = e / (KC * H), q = e % (KC * H);
-      if (r < nr && q / H < kc)
-        pre[m] = __ldg(loc + ((size_t)(b0 + r) * K + k0) * H + q);
-    }
-  };
-  auto stash = [&](int s) {
-    const int b0 = b_lo + s / n_chunks * SLICE_READS;
-    const int k0 = s % n_chunks * KC;
-    const int nr = min(SLICE_READS, b_hi - b0), kc = K - k0;
-    int32_t* buf = sloc + (s & 1) * SLICE_READS * PITCH;
-#pragma unroll
-    for (int m = 0; m < PRE; ++m) {
-      const int e = tid + m * SLICE_THREADS;
-      const int r = e / (KC * H), q = e % (KC * H);
-      if (r < nr && q / H < kc)
-        buf[r * PITCH + (q % H) * KC + q / H] = pre[m] * WT;
-    }
-  };
-
-  if (n_steps > 0) {
-    fetch(0);
-    stash(0);
-  }
-  if (async) cp_async_wait_all();
-  __syncthreads();
-
-  CsaCounter<NL> acc;
-  acc.init();
-  const uint32_t* sw = slice + w;
-  for (int s = 0; s < n_steps; ++s) {
-    const int b0 = b_lo + s / n_chunks * SLICE_READS;
-    const int nr = min(SLICE_READS, b_hi - b0);
-    const int kc = max(0, min(KC, K - s % n_chunks * KC));
-    if (s + 1 < n_steps) fetch(s + 1);
-    if (rr < nr) {
-      const int32_t* lr = sloc + (s & 1) * SLICE_READS * PITCH + rr * PITCH;
-      int i = 0;
-      for (; i + 8 <= kc; i += 8) {
-        uint32_t d[8];
-#pragma unroll
-        for (int jj = 0; jj < H; ++jj) {
-          const int4 a = *reinterpret_cast<const int4*>(lr + jj * KC + i);
-          const int4 b = *reinterpret_cast<const int4*>(lr + jj * KC + i + 4);
-          const int li[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-#pragma unroll
-          for (int u = 0; u < 8; ++u)
-            d[u] = jj == 0 ? sw[li[u]] : d[u] & sw[li[u]];
-        }
-        acc.add8(d);
-      }
-      for (; i < kc; ++i) {
-        uint32_t x = sw[lr[i]];
-#pragma unroll
-        for (int jj = 1; jj < H; ++jj) x &= sw[lr[jj * KC + i]];
-        acc.add1(x);
-      }
-    }
-    if (s % n_chunks == n_chunks - 1) {  // the round's last chunk
-      acc.finish();
-      const int b = b0 + rr;
-      if constexpr (NL == 8) {
-        uint32_t out[8];
-        bitslice_bytes8(acc.c, out);
-        if (rr < nr && w < nw) {
-          const int c = __ldg(cthr + b);
-          uint32_t m = 0;
-          if (c <= 255) {
-            const uint32_t f4 = (uint32_t)max(c, 0) * 0x01010101u;
-#pragma unroll
-            for (int k = 0; k < 8; ++k)
-              m |= mask4(out[k], sthr8[w * 8 + k], f4) << (4 * k);
-          }
-          mask[(size_t)b * W + w0 + w] = m & ~snever[w];
-        }
-        // stage the warp's 4 reads x 256 byte counts, then store each
-        // read's tile row of int32 counts with whole 512-byte spans
-        uint32_t* st = stage + warp * 256;
-        uint4* dst = reinterpret_cast<uint4*>(st + (lane / WT) * 64 + w * 8);
-        dst[0] = make_uint4(out[0], out[1], out[2], out[3]);
-        dst[1] = make_uint4(out[4], out[5], out[6], out[7]);
-        __syncwarp();
-#pragma unroll
-        for (int step = 0; step < 8; ++step) {
-          const int p = step * 32 + lane;
-          const int rl = p >> 6, q = p & 63;
-          const int r = warp * (32 / WT) + rl;
-          if (r < nr && q < nw * 8) {
-            const uint32_t x = st[p];
-            const int4 v = make_int4(
-                (int)__byte_perm(x, 0, 0x4440), (int)__byte_perm(x, 0, 0x4441),
-                (int)__byte_perm(x, 0, 0x4442), (int)__byte_perm(x, 0, 0x4443));
-            reinterpret_cast<int4*>(
-                counts + ((size_t)(b0 + r) * W + w0) * 32)[q] = v;
-          }
-        }
-        __syncwarp();
-      } else {
-        if (rr < nr && w < nw) {
-          const size_t g = (size_t)b * W + w0 + w;
-          mask[g] = bitslice_store16(acc.c, thr + (size_t)(w0 + w) * 32,
-                                     __ldg(cthr + b), counts + g * 32);
-        }
-      }
-      acc.init();
-    }
-    if (s + 1 < n_steps) stash(s + 1);
-    __syncthreads();
-  }
+  slice::slice_count<NL, H>(bits, S_ext - 1, bits + (size_t)(S_ext - 1) * W,
+                            W, blockIdx.x * WT, loc, K, cthr, thr, counts,
+                            mask, b_lo, min(B, b_lo + reads_per_cta),
+                            slice::DenseRows{}, smem);
 }
 
 template <int NL>
@@ -324,42 +117,14 @@ count_mask_gather(const uint32_t* __restrict__ bits, int W,
                              counts + (size_t)g * 32);
 }
 
-struct DeviceInfo {
-  int sms = 0;
-  int smem_optin = 0;
-};
-
-cudaError_t device_info(DeviceInfo* out) {
-  static DeviceInfo cache[64];
-  int dev;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
-  DeviceInfo& d = cache[dev];
-  if (d.sms == 0) {
-    err = cudaDeviceGetAttribute(&d.smem_optin,
-                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) {
-      d.sms = 0;
-      return err;
-    }
-  }
-  *out = d;
-  return cudaSuccess;
-}
-
-bool use_slice(const DeviceInfo& dev, int W, int S_ext, int h) {
-  return W >= WT && slice_smem(S_ext, h) <= (size_t)dev.smem_optin;
-}
+using slice::DeviceInfo;
 
 template <int NL, int H>
 cudaError_t launch_slice(const DeviceInfo& dev, const uint32_t* bits, int W,
                          int S_ext, const int32_t* loc, int B, int K,
                          const int32_t* cthr, const int32_t* thr,
                          int32_t* counts, uint32_t* mask, cudaStream_t stream) {
-  const size_t smem = slice_smem(S_ext, H);
+  const size_t smem = slice::slice_smem(S_ext, H);
   const cudaError_t err = cudaFuncSetAttribute(
       count_mask_slice<NL, H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -370,7 +135,8 @@ cudaError_t launch_slice(const DeviceInfo& dev, const uint32_t* bits, int W,
   const int tiles = (W + WT - 1) / WT;
   const int per_tile = max(1, (dev.sms + tiles - 1) / tiles);
   int reads = (B + per_tile - 1) / per_tile;
-  reads = (reads + SLICE_READS - 1) / SLICE_READS * SLICE_READS;
+  reads = (reads + slice::SLICE_READS - 1) / slice::SLICE_READS *
+          slice::SLICE_READS;
   const dim3 grid(tiles, (B + reads - 1) / reads);
   count_mask_slice<NL, H><<<grid, SLICE_THREADS, smem, stream>>>(
       bits, W, S_ext, loc, B, K, cthr, thr, counts, mask, reads);
@@ -383,9 +149,9 @@ cudaError_t launch(const uint32_t* bits, int W, int S_ext, const int32_t* loc,
                    const int32_t* thr, int32_t* counts, uint32_t* mask,
                    cudaStream_t stream) {
   DeviceInfo dev;
-  cudaError_t err = device_info(&dev);
+  cudaError_t err = slice::device_info(&dev);
   if (err != cudaSuccess) return err;
-  if (use_slice(dev, W, S_ext, h)) {
+  if (slice::use_slice(dev, W, S_ext, h)) {
     switch (h) {
       case 1: err = launch_slice<NL, 1>(dev, bits, W, S_ext, loc, B, K, cthr,
                                         thr, counts, mask, stream); break;
@@ -439,7 +205,7 @@ extern "C" int kmcp_count_mask(const void* bits, int W, int S_ext,
 // 1 slice, 0 gather, or minus the CUDA error of the device query.
 extern "C" int kmcp_count_mask_variant(int W, int S_ext, int h) {
   DeviceInfo dev;
-  const cudaError_t err = device_info(&dev);
+  const cudaError_t err = slice::device_info(&dev);
   if (err != cudaSuccess) return -(int)err;
-  return use_slice(dev, W, S_ext, h) ? 1 : 0;
+  return slice::use_slice(dev, W, S_ext, h) ? 1 : 0;
 }

@@ -3,7 +3,8 @@
 The counterpart of the native C++ loader (kmcp_tpu/kmer/native.py:29-53,
 ``_build``/``get_lib``) for the CUDA sources under ``kmcp_tpu_torch/csrc/``.
 At first use every ``csrc/*.cu`` file is compiled by ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface, under
+``sm_90a``, one process per file, all at once, and linked into one shared
+library with a plain C interface, under
 ``kmcp_tpu_torch/build/<source hash>/``; a change to any source or to a
 shared header (``csrc/*.cuh``) changes the hash and so triggers a
 rebuild.  Nothing includes PyTorch's headers, so a build takes seconds.
@@ -27,7 +28,7 @@ CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _lock = threading.Lock()
@@ -74,6 +75,36 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, source_hash(), "libkmcp_cuda.so")
 
 
+def compile_library(srcs: list[str], so: str) -> str:
+    """nvcc each source to an object, all in parallel, then link them into
+    the shared library ``so``; returns nvcc's output.  Raises with it on a
+    failure."""
+    nvcc = find_nvcc()
+    objs = [f"{so}.{os.path.basename(src)}.o" for src in srcs]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            for src, obj in zip(srcs, objs)]
+    link = [nvcc, *NVCC_FLAGS, "-shared", "-o", so, *objs]
+    try:
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        outs = [p.communicate()[0] for p in procs]
+        for cmd, p, out in zip(cmds, procs, outs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed (exit {p.returncode}): "
+                                   f"{' '.join(cmd)}\n{out}")
+        res = subprocess.run(link, capture_output=True, text=True)
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    log = "".join(outs)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc link failed (exit {res.returncode}): "
+                           f"{' '.join(link)}\n{res.stderr}{res.stdout}")
+    return log + res.stderr + res.stdout
+
+
 def build() -> str:
     """Compile the sources unless the library for their hash exists;
     returns its path."""
@@ -83,17 +114,11 @@ def build() -> str:
         return so
     os.makedirs(os.path.dirname(so), exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()]
     t0 = time.time()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (exit {res.returncode}): {' '.join(cmd)}\n"
-            f"{res.stderr}{res.stdout}"
-        )
+    log = compile_library(sources(), tmp)
     os.replace(tmp, so)  # atomic: concurrent builders never see a partial file
     build_seconds = time.time() - t0
-    build_log = res.stderr + res.stdout
+    build_log = log
     return so
 
 
@@ -116,10 +141,14 @@ def get_lib() -> ctypes.CDLL:
             lib.kmcp_count_mask.restype = i32
             lib.kmcp_pair_count.argtypes = [
                 vp, i32, i32, i32, vp, i32, vp, vp, i32, vp, vp, vp, vp, vp,
+                vp, vp,
             ]
             lib.kmcp_pair_count.restype = i32
+            lib.kmcp_pair_count_variant.argtypes = [i32, i32]
+            lib.kmcp_pair_count_variant.restype = i32
             lib.kmcp_group_count.argtypes = [
-                vp, i32, i32, i32, vp, vp, i32, vp, vp,
+                vp, i32, i32, i32, i32, i32, vp, i32, vp, vp, vp, i32, vp, vp,
+                vp, vp, vp,
             ]
             lib.kmcp_group_count.restype = i32
             _lib = lib

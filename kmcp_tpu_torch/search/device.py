@@ -310,7 +310,8 @@ class TorchDeviceDB:
         return t
 
     def gemm_slabs(self) -> torch.Tensor:
-        """K6''s unpacked [nb, S_pad, 32 W] int8 slabs, built once."""
+        """K6''s slabs, u8 0/1 in the kernel's tiles (``gemm_slabs``),
+        built once."""
         if self._bits01 is None:
             self._bits01 = gemm_slabs(self.bits_ext, self.n_blocks,
                                       self.s_block, s_pad_for(self.s_block))

@@ -3,22 +3,30 @@ cores (kernel K6'), and the torch helpers that feed it.
 
 Port of the Pallas kernel kmcp_tpu/search/pallas_count.py:823
 ``make_pallas_group_count``: counts[p, t] = sum_s U[p, s] *
-bits01[blk(p), s, t], where U holds each pair's Bloom-row multiplicities
-(bf16, exact up to 256) and bits01 the blocks' bits unpacked to 0/1 bytes.
-The CUDA kernel is ``kmcp_tpu_torch/csrc/group_count.cu``;
-``group_count_plain`` is the same function in plain PyTorch, which CPU
-tensors take.
+bits01[pg[p], s, t], where U holds each pair's Bloom-row multiplicities
+and bits01 the blocks' bits as 0/1, with the floors of K5' fused: the
+wrapper takes and returns what ``pair_count`` does (counts at the pair's
+own row, the threshold mask), from the unpacked slabs in place of the
+packed rows.  The CUDA kernel is ``kmcp_tpu_torch/csrc/group_count.cu``
+(u8 wgmma with U built in registers from the locations, exact for any
+multiplicity); ``group_count_plain`` is the same function in plain PyTorch
+(``build_u``, a float32 matmul per block, the floors), which CPU tensors
+take.
 
 Helpers, with their JAX counterparts:
-  ``gemm_slabs``  the unpacked [nb, S_pad, 32 W] int8 block slabs
-                  (``pack_gemm_blocks``, pallas_count.py:801), built once
-                  per DB on the device: 470 MB at 32 blocks of 4,096
-                  targets and S_pad = 3,584;
+  ``gemm_slabs``  the blocks' bits as u8 0/1 (``pack_gemm_blocks``,
+                  pallas_count.py:801), pre-tiled for the kernel as [nb,
+                  T/256, S_pad/128, 256, 128]: one 32 KB tile per (target
+                  tile, k-step), K-major in the 128-byte swizzle that wgmma
+                  reads, so a TMA bulk copy lands it ready; built once per
+                  DB on the device: 470 MB at 32 blocks of 4,096 targets
+                  and S_pad = 3,584;
   ``build_u``     the row-multiplicity matrix U (``_build_u_digit``,
                   device_screened.py:85) as an int32 ``scatter_add_`` cast
-                  to bf16 (the digit one-hot product was an MXU device);
-  ``block_tiles`` the block sort and per-block padding to whole tiles
-                  (device_screened.py:366-404).
+                  to bf16 (exact up to 256), for the plain version.
+The JAX route's block sort and per-block padding to whole tiles
+(device_screened.py:366-404) become ``block_order`` and tiles the kernel
+finds itself from the block starts; no pair moves.
 """
 
 from __future__ import annotations
@@ -26,32 +34,62 @@ from __future__ import annotations
 import torch
 
 from ..kernels._build import get_lib
+from .pair_count import block_order, check_pairs, floor_mask
 
-TILE = 64  # pairs per tile: PT in csrc/group_count.cu
-S_ALIGN = 32  # S_pad granularity: BK in csrc/group_count.cu
+TILE = 128  # pairs per CUDA tile: 64 per consumer warpgroup of the kernel
+BN = 256  # targets per tile (wgmma N)
+BK = 128  # Bloom rows per k-step (a 128-byte row of u8)
 
 
 def s_pad_for(s_block: int) -> int:
     """Slab rows: the block's rows plus the zero row that sentinel windows
-    hit (local row s_block), rounded up to the kernel's depth step."""
-    return -(-(s_block + 1) // S_ALIGN) * S_ALIGN
+    hit (local row s_block), rounded up to whole k-steps."""
+    return -(-(s_block + 1) // BK) * BK
+
+
+def _swizzle(tiles: torch.Tensor) -> torch.Tensor:
+    """[..., rows, 128 bytes] -> the 128-byte swizzle: row r's 16-byte
+    chunk c moves to chunk c ^ (r % 8).  Its own inverse."""
+    shape = tiles.shape
+    per = shape[-1] // 8  # elements a chunk
+    x = tiles.reshape(*shape[:-1], 8, per)
+    r = torch.arange(shape[-2], device=tiles.device)
+    idx = (torch.arange(8, device=tiles.device)[None, :] ^ (r[:, None] & 7))
+    idx = idx[:, :, None].expand(shape[-2], 8, per)
+    return x.gather(-2, idx.expand_as(x)).reshape(shape)
 
 
 def gemm_slabs(bits_ext: torch.Tensor, n_blocks: int, s_block: int,
                S_pad: int) -> torch.Tensor:
-    """Row-stacked blocks int32 [nb*s_block+1, W] -> int8 [nb, S_pad, 32 W]
-    of 0/1, target 32 w + j of block g at [g, :, 32 w + j]; rows s_block
-    and up are zero.  Unpacked one block at a time to bound the
-    temporaries."""
+    """Row-stacked blocks int32 [nb*s_block+1, W] -> u8 [nb, NT, KT, 256,
+    128] (NT = ceil(32 W / 256), KT = ceil(S_pad / 128)): tile [g, n, k]
+    holds bit (row 128 k + c, target 256 n + r) of block g at row r, column
+    c, swizzled (``_swizzle``); rows s_block and up and targets past 32 W
+    are zero.  Unpacked one block at a time to bound the temporaries."""
     W = bits_ext.shape[1]
-    out = torch.zeros((n_blocks, S_pad, 32 * W), dtype=torch.int8,
-                      device=bits_ext.device)
-    shifts = torch.arange(32, dtype=torch.int32, device=bits_ext.device)
+    T = 32 * W
+    NT, KT = -(-T // BN), -(-S_pad // BK)
+    dev = bits_ext.device
+    out = torch.empty((n_blocks, NT, KT, BN, BK), dtype=torch.uint8,
+                      device=dev)
+    shifts = torch.arange(32, dtype=torch.int32, device=dev)
     for g in range(n_blocks):
         b = bits_ext[g * s_block : (g + 1) * s_block]
-        out[g, :s_block] = ((b[..., None] >> shifts) & 1).to(
-            torch.int8).reshape(s_block, 32 * W)
+        dense = torch.zeros((KT * BK, NT * BN), dtype=torch.uint8,
+                            device=dev)
+        dense[:s_block, :T] = ((b[..., None] >> shifts) & 1).reshape(
+            s_block, T)
+        tiles = dense.reshape(KT, BK, NT, BN).permute(2, 0, 3, 1)
+        out[g] = _swizzle(tiles.contiguous())
     return out
+
+
+def slab_dense(bits01: torch.Tensor, g: int) -> torch.Tensor:
+    """Block g of ``gemm_slabs``'s tiles as float32 [KT*128, NT*256] (rows,
+    targets)."""
+    _nb, NT, KT, _bn, _bk = bits01.shape
+    tiles = _swizzle(bits01[g]).float()  # [NT, KT, 256, 128]
+    return tiles.permute(1, 3, 0, 2).reshape(KT * BK, NT * BN)
 
 
 def build_u(loc: torch.Tensor, S_pad: int) -> torch.Tensor:
@@ -65,102 +103,110 @@ def build_u(loc: torch.Tensor, S_pad: int) -> torch.Tensor:
     return u.to(torch.bfloat16)
 
 
-def block_tiles(pg: torch.Tensor, n_blocks: int, tile: int = TILE):
-    """Pairs -> (slot int64 [P], blk int32 [P_pad // tile]): pair i goes
-    to row slot[i] of a block-sorted layout in which each block's pairs
-    fill whole tiles (in their given order) and tile r holds block blk[r].
-    Padding slots belong to no pair."""
-    order = torch.argsort(pg, stable=True)
-    cnt = torch.bincount(pg.long(), minlength=n_blocks)
-    padded = (cnt + tile - 1) // tile * tile
-    pbase = torch.cumsum(padded, 0) - padded
-    start = torch.cumsum(cnt, 0) - cnt
-    g_s = pg[order].long()
-    slot = torch.empty_like(order)
-    slot[order] = pbase[g_s] + torch.arange(
-        order.shape[0], device=pg.device) - start[g_s]
-    blk = torch.repeat_interleave(
-        torch.arange(n_blocks, dtype=torch.int32, device=pg.device),
-        padded // tile,
-    )
-    return slot, blk
+def n_tiles(P: int, n_blocks: int, tile: int = TILE) -> int:
+    """A bound of the pair tiles when each block's pairs fill whole tiles of
+    their own: sum_g ceil(P_g / tile) <= P // tile + min(nb, P)."""
+    return P // tile + min(n_blocks, P)
 
 
-def _check(bits01, u, blk):
+def _check(bits01, loc, pb, pg, cthr, thr, s_block):
     if bits01.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {bits01.device}")
-    for name, t, dt in (("bits01", bits01, torch.int8),
-                        ("u", u, torch.bfloat16), ("blk", blk, torch.int32)):
-        if t.dtype != dt:
-            raise ValueError(f"{name} must be {dt}, got {t.dtype}")
+    if bits01.dtype != torch.uint8 or not bits01.is_contiguous():
+        raise ValueError("bits01 must be contiguous uint8 (gemm_slabs)")
+    for name, t in (("loc", loc), ("pb", pb), ("pg", pg), ("cthr", cthr),
+                    ("thr", thr)):
+        if t.dtype != torch.int32:
+            raise ValueError(f"{name} must be int32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.device != bits01.device:
             raise ValueError(f"{name} is on {t.device}, bits01 on "
                              f"{bits01.device}")
-    if bits01.dim() != 3 or u.dim() != 2 or blk.dim() != 1:
-        raise ValueError("bits01 must be [nb, S_pad, T], u [P_pad, S_pad] "
-                         "and blk [P_pad / TILE]")
-    _nb, S_pad, T = bits01.shape
-    if T % 32 or u.shape[1] != S_pad:
-        raise ValueError(f"T={T} must be a multiple of 32 and u [*, {S_pad}]")
-    if u.shape[0] != TILE * blk.shape[0]:
-        raise ValueError(f"u has {u.shape[0]} rows, blk {blk.shape[0]} "
-                         f"tiles of {TILE}")
+    if bits01.dim() != 5 or tuple(bits01.shape[3:]) != (BN, BK):
+        raise ValueError(f"bits01 must be [nb, NT, KT, {BN}, {BK}], got "
+                         f"{tuple(bits01.shape)}")
+    if loc.dim() != 2 or thr.dim() != 2 or pb.dim() != 1 or pb.shape != pg.shape:
+        raise ValueError("loc must be [B, K], thr [nb, T], pb and pg [P]")
+    nb, NT, KT = bits01.shape[:3]
+    T = thr.shape[1]
+    if thr.shape[0] != nb or T % 32 or -(-T // BN) != NT:
+        raise ValueError(f"thr {tuple(thr.shape)} does not fit slabs of "
+                         f"{nb} blocks x {NT} target tiles")
+    if not 0 <= s_block < KT * BK:
+        raise ValueError(f"s_block {s_block} outside the slabs' {KT * BK} rows")
+    if tuple(cthr.shape) != (loc.shape[0],):
+        raise ValueError(f"cthr must be [{loc.shape[0]}]")
 
 
-def group_count(bits01: torch.Tensor, u: torch.Tensor, blk: torch.Tensor
-                ) -> torch.Tensor:
-    """bits01 int8 [nb, S_pad, T] (0/1), u bf16 [P_pad, S_pad], blk int32
-    [P_pad / TILE] (the block of each tile; nb for a tile of zeros) ->
-    counts int32 [P_pad, T], counts[p, t] = sum_s u[p, s] *
-    bits01[blk[p // TILE], s, t].  A CPU tensor takes
-    ``group_count_plain``; a CUDA tensor launches the kernel or raises."""
+def group_count(bits01: torch.Tensor, loc: torch.Tensor, pb: torch.Tensor,
+                pg: torch.Tensor, cthr: torch.Tensor, thr: torch.Tensor,
+                s_block: int, rows_checked: bool = False
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """bits01 u8 [nb, NT, KT, 256, 128] (``gemm_slabs``), loc int32 [B, K]
+    (rows in the block modulus, sentinel s_block), pb/pg int32 [P] (read
+    and block of each pair), cthr int32 [B] per-read floor, thr int32 [nb,
+    T] per-target floor -> (counts int32 [P, T], mask int32 [P, T/32]), as
+    ``pair_count``: counts[p, t] = sum over the read's windows of bit t of
+    their row in block pg[p], and bit j of mask word w set iff counts[p, 32
+    w + j] >= max(thr[pg[p], 32 w + j], cthr[pb[p]]).  A CPU tensor takes
+    ``group_count_plain``; a CUDA tensor launches the kernel (pairs in
+    tiles of ``TILE``) or raises.  ``rows_checked=True`` skips
+    ``check_pairs`` (device syncs) for a caller that has checked or built
+    the indices itself."""
     if bits01.device.type == "cpu":
-        return group_count_plain(bits01, u, blk)
-    _check(bits01, u, blk)
-    nb, S_pad, T = bits01.shape
-    if u.data_ptr() % 16 or bits01.data_ptr() % 16:
-        raise ValueError("u and bits01 must be 16-byte aligned")
-    if blk.numel():
-        lo, hi = torch.aminmax(blk)
-        if int(lo) < 0 or int(hi) > nb:
-            raise ValueError(f"blk holds {int(lo)}..{int(hi)} outside 0..{nb}")
-    counts = torch.empty((u.shape[0], T), dtype=torch.int32,
-                         device=bits01.device)
+        return group_count_plain(bits01, loc, pb, pg, cthr, thr, s_block)
+    _check(bits01, loc, pb, pg, cthr, thr, s_block)
+    if bits01.data_ptr() % 16:
+        raise ValueError("bits01 must be 16-byte aligned")
+    nb, NT, KT = bits01.shape[:3]
+    T = thr.shape[1]
+    if not rows_checked:
+        check_pairs(loc, pb, pg, s_block, nb)
+    P, K = pb.shape[0], loc.shape[1]
+    counts = torch.empty((P, T), dtype=torch.int32, device=bits01.device)
+    mask = torch.empty((P, T // 32), dtype=torch.int32, device=bits01.device)
+    if P == 0:
+        return counts, mask
+    order, seg = block_order(pg, nb)
     stream = torch.cuda.current_stream(bits01.device).cuda_stream
     rc = get_lib().kmcp_group_count(
-        bits01.data_ptr(), nb, S_pad, T, u.data_ptr(), blk.data_ptr(),
-        blk.shape[0], counts.data_ptr(), stream,
+        bits01.data_ptr(), nb, NT, KT, T, s_block, loc.data_ptr(), K,
+        pb.data_ptr(), order.data_ptr(), seg.data_ptr(), n_tiles(P, nb),
+        cthr.data_ptr(), thr.data_ptr(), counts.data_ptr(), mask.data_ptr(),
+        stream,
     )
     if rc != 0:
         raise RuntimeError(f"group_count kernel launch failed: cuda error {rc}")
     group_count.launches += 1
-    return counts
+    return counts, mask
 
 
 group_count.launches = 0
 
 
-def group_count_plain(bits01: torch.Tensor, u: torch.Tensor, blk: torch.Tensor
-                      ) -> torch.Tensor:
-    """Plain PyTorch version: one float32 matmul per block group (TF32 off:
-    it would round; float32 sums of these integers are exact below
-    2^24)."""
-    _check(bits01, u, blk)
-    nb, _S_pad, T = bits01.shape
-    counts = torch.zeros((u.shape[0], T), dtype=torch.int32,
-                         device=bits01.device)
-    rows = torch.arange(u.shape[0], device=u.device)
-    row_blk = blk.long().repeat_interleave(TILE)
+def group_count_plain(bits01: torch.Tensor, loc: torch.Tensor,
+                      pb: torch.Tensor, pg: torch.Tensor, cthr: torch.Tensor,
+                      thr: torch.Tensor, s_block: int
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version: U by ``build_u`` (sentinel windows on the
+    zero row s_block), one float32 matmul per block (TF32 off: it would
+    round; float32 sums of these integers are exact below 2^24), then the
+    floors."""
+    _check(bits01, loc, pb, pg, cthr, thr, s_block)
+    nb, _NT, KT = bits01.shape[:3]
+    check_pairs(loc, pb, pg, s_block, nb)
+    T = thr.shape[1]
+    P = pb.shape[0]
+    u = build_u(loc[pb.long()], KT * BK)
+    counts = torch.zeros((P, T), dtype=torch.int32, device=bits01.device)
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        for g in torch.unique(blk).tolist():
-            if not 0 <= g < nb:
-                continue  # tiles of zeros
-            r = rows[row_blk == g]
-            counts[r] = (u[r].float() @ bits01[g].float()).to(torch.int32)
+        for g in torch.unique(pg).tolist():
+            r = torch.nonzero(pg == g).squeeze(1)
+            counts[r] = (u[r].float() @ slab_dense(bits01, g)[:, :T]).to(
+                torch.int32)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
-    return counts
+    return counts, floor_mask(counts, thr[pg.long()], cthr[pb.long()])

@@ -5,9 +5,12 @@ threshold mask (kernel K5').
 Port of the Pallas kernel kmcp_tpu/search/pallas_count.py:658
 ``make_pallas_pair_count``.  The CUDA kernel is
 ``kmcp_tpu_torch/csrc/pair_count.cu``; ``pair_count_plain`` is the same
-function in plain PyTorch, which CPU tensors take.  Unlike the TPU kernel it
-takes pairs in any order and the row-stacked matrix as it is (no per-block
-VMEM slabs), and writes row p of its outputs for pair p.
+function in plain PyTorch, which CPU tensors take.  Like the TPU kernel it
+counts a block's pairs against that block's rows held on chip (a word tile
+of them in shared memory), but it takes pairs in any order and the
+row-stacked matrix as it is: the wrapper sorts the pairs by block on the
+device (``block_order``) and the kernel writes row p of its outputs for
+pair p.
 """
 
 from __future__ import annotations
@@ -55,6 +58,30 @@ def check_pairs(loc: torch.Tensor, pb: torch.Tensor, pg: torch.Tensor,
     check_rows(pg, n_blocks)
 
 
+def block_order(pg: torch.Tensor, n_blocks: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pairs' blocks pg int32 [P] -> (order int32 [P], seg int32 [nb+1]):
+    the pairs stably sorted by block, block g's at order[seg[g] ..
+    seg[g+1]].  On the device, no host sync."""
+    order = torch.argsort(pg, stable=True)
+    blocks = torch.arange(n_blocks + 1, dtype=pg.dtype, device=pg.device)
+    seg = torch.searchsorted(pg[order], blocks)
+    return order.to(torch.int32), seg.to(torch.int32)
+
+
+def floor_mask(counts: torch.Tensor, thr_rows: torch.Tensor,
+               cthr_rows: torch.Tensor) -> torch.Tensor:
+    """counts int32 [P, 32 W], per-target floors thr_rows [P, 32 W] and
+    per-read floors cthr_rows [P] -> mask int32 [P, W], bit j of word w set
+    iff counts[p, 32 w + j] >= max(thr_rows[p, 32 w + j], cthr_rows[p])."""
+    P, T = counts.shape
+    shifts = torch.arange(32, dtype=torch.int64, device=counts.device)
+    floor = torch.maximum(thr_rows, cthr_rows[:, None])
+    ok = (counts >= floor).reshape(P, T // 32, 32).long()
+    words = (ok << shifts).sum(dim=2)
+    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+
+
 def pair_count(bits: torch.Tensor, loc: torch.Tensor, pb: torch.Tensor,
                pg: torch.Tensor, cthr: torch.Tensor, thr: torch.Tensor,
                rows_checked: bool = False
@@ -77,11 +104,21 @@ def pair_count(bits: torch.Tensor, loc: torch.Tensor, pb: torch.Tensor,
     P, K = pb.shape[0], loc.shape[1]
     counts = torch.empty((P, 32 * W), dtype=torch.int32, device=bits.device)
     mask = torch.empty((P, W), dtype=torch.int32, device=bits.device)
+    if P == 0:
+        return counts, mask
+    lib = get_lib()
+    variant = lib.kmcp_pair_count_variant(W, s_block)
+    if variant < 0:
+        raise RuntimeError(f"pair_count device query failed: cuda error "
+                           f"{-variant}")
+    # the slice variant counts each block's pairs together
+    order, seg = block_order(pg, n_blocks) if variant == 1 else (pb, pb)
     stream = torch.cuda.current_stream(bits.device).cuda_stream
-    rc = get_lib().kmcp_pair_count(
+    rc = lib.kmcp_pair_count(
         bits.data_ptr(), W, n_blocks, s_block, loc.data_ptr(), K,
-        pb.data_ptr(), pg.data_ptr(), P, cthr.data_ptr(), thr.data_ptr(),
-        counts.data_ptr(), mask.data_ptr(), stream,
+        pb.data_ptr(), pg.data_ptr(), P, order.data_ptr(), seg.data_ptr(),
+        cthr.data_ptr(), thr.data_ptr(), counts.data_ptr(), mask.data_ptr(),
+        stream,
     )
     if rc != 0:
         raise RuntimeError(f"pair_count kernel launch failed: cuda error {rc}")
@@ -111,8 +148,4 @@ def pair_count_plain(bits: torch.Tensor, loc: torch.Tensor, pb: torch.Tensor,
         # arithmetic shift then & 1 reads bit 31 of negative words right
         counts += (bits[rows[:, i]][..., None] >> shifts) & 1
     counts = counts.reshape(P, 32 * W)
-    floor = torch.maximum(thr[pg.long()], cthr[pb.long()][:, None])
-    ok = (counts >= floor).reshape(P, W, 32).long()
-    words = (ok << shifts.long()).sum(dim=2)
-    mask = torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
-    return counts, mask
+    return counts, floor_mask(counts, thr[pg.long()], cthr[pb.long()])

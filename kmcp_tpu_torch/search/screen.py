@@ -21,12 +21,11 @@ import torch
 from .count import check_rows, count_mask
 from .device_step import (
     COUNTS_BYTES,
-    FLOOR_NEVER,
     mask_hits,
     pack_result_split,
     read_floor,
 )
-from .group_count import TILE, block_tiles, build_u, group_count
+from .group_count import TILE, group_count
 from .pair_count import pair_count
 
 PASS2 = ("pair", "gemm")
@@ -38,13 +37,17 @@ def pass2_kernel(n_blocks: int, w_block: int, s_block: int,
     ``n_blocks`` blocks of ``w_block`` words and ``s_block`` rows.
 
     The rule is measured, not the TPU's (whose n_blocks > 64 cut and VMEM
-    budget do not apply here).  On an H100 (chip_smoke.py phase 3; PERF.md)
-    at 4,096 targets and 3,578 rows a block, the whole K5' route (kernel +
-    compaction) took 2.8 ms at 32 blocks and 20,480 pairs and 4.7 ms at
-    128 blocks and 36,864 pairs; the K6' route (U build + kernel + floors
-    + compaction) 11.6 ms and 21.1 ms.  So K5' at every measured geometry;
-    K6' runs only when asked for, and then only while every real row
-    multiplicity fits bf16 exactly (dedup_threshold <= 256)."""
+    budget do not apply here).  On an NVIDIA H100 80GB HBM3 at its 700.00 W
+    power limit, at 4,096 targets and 3,578 rows a block, after both
+    kernels' Hopper redesigns, the whole K5' route (block sort + kernel +
+    compaction) took 1.153 ms at 32 blocks and 20,480 pairs and 1.892 ms at
+    128 blocks and 36,864 pairs, and the K6' route (block sort + kernel
+    with fused floors + compaction) 2.030 ms and 3.445 ms (chip_smoke.py
+    phase 3; tools/pass2_ab.py in the same call: 1.03-1.29 against
+    1.66-1.68 ms, and 1.40-1.45 against 2.71-2.82 ms; PERF.md).  So K5' at
+    every measured geometry; K6' runs only when asked for, and then only
+    while every real row multiplicity fits the plain version's bf16 U
+    exactly (dedup_threshold <= 256)."""
     return "pair"
 
 
@@ -73,20 +76,18 @@ def active_pairs(u_ext: torch.Tensor, loc_u: torch.Tensor, nk: torch.Tensor,
     return pb.to(torch.int32), pg.to(torch.int32)
 
 
-def pass2_chunk(T_b: int, S_pad: int = 0) -> int:
-    """Pairs per pass-2 launch: int32 counts [P, T_b], and for K6' the
-    int32 U build [P, S_pad], near COUNTS_BYTES."""
-    return max(TILE, COUNTS_BYTES // (4 * (T_b + S_pad)))
+def pass2_chunk(T_b: int) -> int:
+    """Pairs per pass-2 launch: int32 counts [P, T_b] near COUNTS_BYTES."""
+    return max(TILE, COUNTS_BYTES // (4 * T_b))
 
 
-def _pass2_pair(bits_ext, loc, pb, pg, cthr, thr, chunk):
-    """K5' on read-major chunks of P > 0 pairs -> (pair ids, target
-    lanes, counts) ascending by (pair, lane)."""
+def _pass2_chunks(count, pb, pg, chunk):
+    """count(pb, pg) -> (counts, mask) on read-major chunks of P > 0 pairs
+    -> (pair ids, target lanes, counts) ascending by (pair, lane)."""
     ps, ts, cs = [], [], []
     for p0 in range(0, pb.shape[0], chunk):
         p1 = min(pb.shape[0], p0 + chunk)
-        counts, mask = pair_count(bits_ext, loc, pb[p0:p1], pg[p0:p1], cthr,
-                                  thr, rows_checked=True)
+        counts, mask = count(pb[p0:p1], pg[p0:p1])
         p, t = mask_hits(mask)
         ps.append(p + p0)
         ts.append(t)
@@ -94,43 +95,19 @@ def _pass2_pair(bits_ext, loc, pb, pg, cthr, thr, chunk):
     return torch.cat(ps), torch.cat(ts), torch.cat(cs)
 
 
+def _pass2_pair(bits_ext, loc, pb, pg, cthr, thr, chunk):
+    """K5' on read-major chunks of P > 0 pairs."""
+    return _pass2_chunks(
+        lambda b, g: pair_count(bits_ext, loc, b, g, cthr, thr,
+                                rows_checked=True), pb, pg, chunk)
+
+
 def _pass2_gemm(bits01, loc, pb, pg, cthr, thr, s_block, chunk):
-    """K6' on P > 0 pairs, block-sorted and tile-padded; the floors in
-    torch over its counts; then back to read-major order -> (pair ids,
-    target lanes, counts) ascending by (pair, lane)."""
-    n_blocks, S_pad, T_b = bits01.shape
-    B, K = loc.shape
-    dev = loc.device
-    P = pb.shape[0]
-    slot, blk = block_tiles(pg, n_blocks)
-    P_pad = TILE * blk.shape[0]
-    pair_of = torch.full((P_pad,), -1, dtype=torch.int64, device=dev)
-    pair_of[slot] = torch.arange(P, device=dev)
-    # padding slots read row B: every window at the (zero) sentinel row,
-    # and a floor no count reaches
-    pb_pad = torch.full((P_pad,), B, dtype=torch.int64, device=dev)
-    pb_pad[slot] = pb.long()
-    loc_ext = torch.cat([loc, loc.new_full((1, K), s_block)])
-    cthr_ext = torch.cat([cthr, cthr.new_full((1,), FLOOR_NEVER)])
-    thr_ext = torch.cat([thr, thr.new_full((1, T_b), FLOOR_NEVER)])
-    chunk = max(TILE, chunk // TILE * TILE)
-    ss, ts, cs = [], [], []
-    for s0 in range(0, P_pad, chunk):
-        s1 = min(P_pad, s0 + chunk)
-        rows = pb_pad[s0:s1]
-        counts = group_count(bits01, build_u(loc_ext[rows], S_pad),
-                             blk[s0 // TILE : s1 // TILE])
-        nt = (s1 - s0) // TILE
-        c3 = counts.view(nt, TILE, T_b)
-        ok = ((c3 >= thr_ext[blk[s0 // TILE : s1 // TILE].long()][:, None, :])
-              & (c3 >= cthr_ext[rows].view(nt, TILE, 1)))
-        s, t = torch.nonzero(ok.view(s1 - s0, T_b), as_tuple=True)
-        ss.append(s + s0)
-        ts.append(t)
-        cs.append(counts[s, t])
-    p = pair_of[torch.cat(ss)]
-    order = torch.argsort(p, stable=True)  # lanes stay ascending per pair
-    return p[order], torch.cat(ts)[order], torch.cat(cs)[order]
+    """K6' on read-major chunks of P > 0 pairs (it sorts each chunk by
+    block itself and writes each pair's row in place)."""
+    return _pass2_chunks(
+        lambda b, g: group_count(bits01, loc, b, g, cthr, thr, s_block,
+                                 rows_checked=True), pb, pg, chunk)
 
 
 def screened_tail(bits_ext: torch.Tensor, u_ext: torch.Tensor,
@@ -171,8 +148,7 @@ def screened_tail(bits_ext: torch.Tensor, u_ext: torch.Tensor,
     if stats is not None:
         stats["pairs"] = stats.get("pairs", 0) + int(pb.shape[0])
     if chunk_pairs is None:
-        chunk_pairs = pass2_chunk(
-            T_b, bits01.shape[1] if pass2 == "gemm" else 0)
+        chunk_pairs = pass2_chunk(T_b)
     if pb.numel() == 0:
         none = torch.zeros(0, dtype=torch.int64, device=loc.device)
         return pack_result_split(none, none, none, nk, budget)

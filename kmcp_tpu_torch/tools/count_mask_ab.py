@@ -22,7 +22,6 @@ import ctypes
 import glob
 import json
 import os
-import subprocess
 import sys
 
 import numpy as np
@@ -47,12 +46,7 @@ def build_parent(parent: str, out_dir: str) -> ctypes.CDLL:
         raise SystemExit(f"no csrc/*.cu under {parent}")
     os.makedirs(out_dir, exist_ok=True)
     so = os.path.join(out_dir, "libparent.so")
-    res = subprocess.run(
-        [_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", so, *srcs],
-        capture_output=True, text=True,
-    )
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc of {parent} failed:\n{res.stderr}")
+    _build.compile_library(srcs, so)
     lib = ctypes.CDLL(so)
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     # the earlier entry point takes no row count

@@ -1,9 +1,11 @@
 """Where K2''s wide launch spends its time: variants of csrc/count_mask.cu
-with one part changed or cut out, each built and timed at the wide shape.
+and the slice counter it shares (csrc/slice.cuh) with one part changed or
+cut out, each built and timed at the wide shape.
 
 Each variant copies ``kmcp_tpu_torch/csrc`` to a directory under
-``kmcp_tpu_torch/build/probe/``, applies its text edits (a missing anchor
-fails the run), builds with the package's nvcc flags and times the entry
+``kmcp_tpu_torch/build/probe/``, applies its text edits to the file that
+holds each anchor (a missing anchor fails the run), builds with the
+package's nvcc flags and times the entry
 point on the same inputs: the dense tail's 2,048-read chunk of 131,072
 targets, 3,579 rows, h = 1, K = 140.  Times are CUDA events, median of
 ``--reps`` launches after a warm-up, in two rounds (variants in order, then
@@ -23,7 +25,6 @@ import glob
 import json
 import os
 import shutil
-import subprocess
 import sys
 
 import numpy as np
@@ -33,7 +34,7 @@ from ..kernels import _build
 from .count_mask_ab import median_ms
 
 STORE = """            reinterpret_cast<int4*>(
-                counts + ((size_t)(b0 + r) * W + w0) * 32)[q] = v;"""
+                counts + ((size_t)rows.dst(b0 + r) * W + w0) * 32)[q] = v;"""
 NO_LOOP = [("for (; i + 8 <= kc; i += 8) {", "for (; i + 8 <= 0; i += 8) {"),
            ("for (; i < kc; ++i) {", "for (; i < 0; ++i) {")]
 VARIANTS = {
@@ -53,26 +54,28 @@ VARIANTS = {
 S, W, H, B, K = 3578, 4096, 1, 2048, 140
 
 
+def apply_edit(d: str, files, old: str, new: str, name: str):
+    """Replace ``old`` by ``new`` in the first of ``files`` (under d) that
+    holds it; raise if none does."""
+    for fname in files:
+        path = os.path.join(d, fname)
+        with open(path) as f:
+            src = f.read()
+        if old in src:
+            with open(path, "w") as f:
+                f.write(src.replace(old, new))
+            return
+    raise SystemExit(f"variant {name}: anchor not found: {old!r}")
+
+
 def build(name: str, edits, root: str) -> ctypes.CDLL:
     d = os.path.join(root, name)
     shutil.rmtree(d, ignore_errors=True)
     shutil.copytree(_build.CSRC_DIR, d)
     for old, new in edits:
-        path = os.path.join(d, "count_mask.cu")
-        with open(path) as f:
-            src = f.read()
-        if old not in src:
-            raise SystemExit(f"variant {name}: anchor not found: {old!r}")
-        with open(path, "w") as f:
-            f.write(src.replace(old, new))
+        apply_edit(d, ("count_mask.cu", "slice.cuh"), old, new, name)
     so = os.path.join(d, "lib.so")
-    res = subprocess.run(
-        [_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", so,
-         *sorted(glob.glob(os.path.join(d, "*.cu")))],
-        capture_output=True, text=True,
-    )
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc of variant {name} failed:\n{res.stderr}")
+    _build.compile_library(sorted(glob.glob(os.path.join(d, "*.cu"))), so)
     lib = ctypes.CDLL(so)
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.kmcp_count_mask.argtypes = [vp, i32, i32, vp, i32, i32, i32, vp, vp,

@@ -1,8 +1,10 @@
 """The CUDA kernels on the card against their plain PyTorch versions at
 edge shapes the chip smoke does not reach (odd batch sizes, W = 1 and 33,
 h = 2 and 4, K past 255, scaled max_hash, k = 31; K1''s screen plane; K5'
-and K6' on narrow blocks, ragged S_pad and tiles of zeros), and the count
-and screened tails on the card against their CPU runs.  Marked ``cuda``:
+on narrow and wide blocks, unsorted pairs, empty and crowded blocks; K6'
+at ragged S_pad and T, partial and padding tiles, multiplicity 256,
+sentinel-only reads, FLOOR_NEVER floors, bit 31 and two sweeps), and the
+count and screened tails on the card against their CPU runs.  Marked ``cuda``:
 they skip without a card and run on the GPU machine with
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
@@ -15,7 +17,6 @@ import torch
 from kmcp_tpu_torch.search.count import count_mask, count_mask_plain
 from kmcp_tpu_torch.search.device_step import FLOOR_NEVER, count_tail
 from kmcp_tpu_torch.search.group_count import (
-    TILE,
     gemm_slabs,
     group_count,
     group_count_plain,
@@ -197,30 +198,101 @@ def test_pair_count_kernel_matches_plain(cuda, nb, s_block, W, B, K, P):
     assert int(counts.max()) > 0
 
 
-@pytest.mark.parametrize("nb,S_pad,T,tiles", [
-    (3, 64, 4096, 5), (4, 88, 32, 3), (2, 3584, 64, 2), (5, 40, 96, 4),
+@pytest.mark.parametrize("nb,s_block,W,B,K,P,empty", [
+    (4, 3578, 128, 600, 140, 3000, 2),  # the main path's blocks, > 1 CTA each
+    (3, 500, 8, 300, 300, 700, None),   # one tile, K = 300: 16 planes
+    (6, 997, 13, 200, 141, 50, 0),      # W not a multiple of 8, few pairs
 ])
-def test_group_count_kernel_matches_plain(cuda, nb, S_pad, T, tiles):
-    """Ragged S_pad (88, 40: not multiples of 32), T below the 64-target
-    tile (32, 96), a tile of zeros (blk == nb) and multiplicities up to
-    256."""
-    rng = np.random.default_rng(S_pad + T)
-    bits01 = torch.from_numpy(
-        (rng.random((nb, S_pad, T)) < 0.4).astype(np.int8)).to(cuda)
-    u = rng.integers(0, 4, (tiles * TILE, S_pad)).astype(np.float32)
-    u[0, 1] = 256
-    u[1, 2] = 200
-    u = torch.from_numpy(u).to(torch.bfloat16).to(cuda)
-    blk_np = rng.integers(0, nb, tiles).astype(np.int32)
-    blk_np[-1] = nb
-    blk = torch.from_numpy(blk_np).to(cuda)
+def test_pair_count_slice_matches_plain(cuda, nb, s_block, W, B, K, P, empty):
+    """K5''s block-stationary slice variant on unsorted pairs, a block with
+    no pairs (``empty``), blocks with more pairs than one CTA's round, words
+    with bit 31 set, a read of sentinel windows only and one whose windows
+    all hit an all-ones row."""
+    from kmcp_tpu_torch.kernels._build import get_lib
+
+    assert get_lib().kmcp_pair_count_variant(W, s_block) == 1
+    rng = np.random.default_rng(nb * 100 + W)
+    bits = _blocks(rng, nb, s_block, W).view(np.uint32)
+    bits[:-1] |= np.uint32(1 << 31)
+    bits[0] = 0xFFFFFFFF
+    loc = rng.integers(0, s_block + 1, (B, K)).astype(np.int32)
+    loc[0] = s_block
+    loc[1] = 0
+    pg = rng.integers(0, nb, P).astype(np.int32)
+    if empty is not None:
+        pg[pg == empty] = (empty + 1) % nb
+    pg[:2] = 0
+    pb = rng.integers(0, B, P).astype(np.int32)
+    pb[:2] = (0, 1)
+    arrays = (bits.view(np.int32), loc, pb, pg,
+              rng.integers(0, K // 3 + 2, B).astype(np.int32),
+              np.where(rng.random((nb, 32 * W)) < 0.1, FLOOR_NEVER,
+                       rng.integers(0, K // 3 + 2, (nb, 32 * W))
+                       ).astype(np.int32))
+    args = [torch.from_numpy(a).to(cuda) for a in arrays]
+    n0 = pair_count.launches
+    counts, mask = pair_count(*args)
+    counts_p, mask_p = pair_count_plain(*args)
+    torch.cuda.synchronize()
+    assert pair_count.launches == n0 + 1
+    assert torch.equal(counts, counts_p) and torch.equal(mask, mask_p)
+    assert not counts[0].any() and (counts[1] == K).all()
+
+
+def _k6_case(rng, nb, s_block, W, B, K, P, S_pad, cuda):
+    """Random blocks (bit 31 set on every word of block 0), locations and
+    pairs; read 0 all sentinel windows, read 1 all on row 5 (multiplicity
+    K), read 2 half on row 3; FLOOR_NEVER on some floors."""
+    bits = _blocks(rng, nb, s_block, W).view(np.uint32)
+    bits[:s_block] |= np.uint32(1 << 31)
+    bits_t = torch.from_numpy(bits.view(np.int32)).to(cuda)
+    loc = rng.integers(0, s_block + 1, (B, K)).astype(np.int32)
+    loc[0] = s_block
+    loc[1] = 5
+    loc[2, ::2] = 3
+    pb = rng.integers(0, B, P).astype(np.int32)
+    pg = rng.integers(0, nb, P).astype(np.int32)
+    pb[:3], pg[:3] = (0, 1, 2), 0
+    cthr = rng.integers(0, K // 3 + 2, B).astype(np.int32)
+    cthr[1] = K
+    cthr[rng.random(B) < 0.1] = FLOOR_NEVER
+    thr = np.where(rng.random((nb, 32 * W)) < 0.1, FLOOR_NEVER,
+                   rng.integers(0, K // 3 + 2, (nb, 32 * W))).astype(np.int32)
+    args = [torch.from_numpy(a).to(cuda) for a in (loc, pb, pg, cthr, thr)]
+    return bits_t, gemm_slabs(bits_t, nb, s_block, S_pad), args
+
+
+@pytest.mark.parametrize("nb,s_block,W,B,K,P,S_pad", [
+    (3, 40, 128, 64, 12, 96, 64),       # one k-step, one partial tile
+    (4, 90, 1, 70, 140, 333, 100),      # T = 32; S_pad 100: ragged k-step
+    (2, 57, 13, 33, 300, 260, 75),      # T = 416, K = 300: two sweeps
+    (5, 3578, 128, 300, 256, 900, 3584),  # the main path's blocks
+    (5, 3578, 128, 300, 140, 900, 3584),
+    (2, 5000, 16, 200, 140, 300, 5120),   # tall: S in chunks of k-steps
+    (2, 9000, 8, 100, 300, 150, 9088),    # tall, two sweeps x three chunks
+])
+def test_group_count_kernel_matches_plain(cuda, nb, s_block, W, B, K, P,
+                                          S_pad):
+    """K6' on wgmma against its plain version (U by build_u, float32
+    matmul, floors) and against K5''s counts and mask on the same unsorted
+    pairs: S_pad not a multiple of 64, T below and not a multiple of 256,
+    partial pair tiles and tiles past the last, multiplicity 256 (read 1
+    at K = 256), a read of sentinel windows only, FLOOR_NEVER floors, bit 31
+    set, K = 300 (two sweeps of windows), and blocks too tall for one
+    bucketing of the windows (over 4,096 rows: S swept in chunks)."""
+    rng = np.random.default_rng(s_block * 7 + K + P)
+    bits, bits01, args = _k6_case(rng, nb, s_block, W, B, K, P, S_pad, cuda)
     n0 = group_count.launches
-    got = group_count(bits01, u, blk)
-    want = group_count_plain(bits01, u, blk)
+    got = group_count(bits01, *args, s_block)
+    want = group_count_plain(bits01, *args, s_block)
+    pair = pair_count(bits, *args)
     torch.cuda.synchronize()
     assert group_count.launches == n0 + 1
-    assert torch.equal(got, want)
-    assert not bool(got[-TILE:].any()) and int(got.max()) > 256
+    for a, b, c in zip(got, want, pair):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    counts, mask = got
+    assert not counts[0].any() and int(counts[1].max()) == K
+    assert bool((mask < 0).any())  # bit 31 of a mask word
 
 
 @pytest.mark.parametrize("pass2", ["pair", "gemm"])

@@ -8,7 +8,10 @@ tests/test_pallas_pair.py (3 blocks of 40 rows x 4,096 targets, W_b = 128):
   interpret mode: byte-identical (meta, aux) when nothing overflows, and
   n > budget on both sides when the budget is starved (the mirrors of the
   five tests of test_pallas_pair.py);
-- the row-multiplicity matrix U vs ``_build_u_digit``;
+- the row-multiplicity matrix U vs ``_build_u_digit``, and the plain K6'
+  exact at multiplicity 256;
+- K6''s route (fused floors, each pair's row in place) vs K5''s, pair by
+  pair, and its tail vs the JAX GEMM route at chunks that cut block tiles;
 - pair-chunked vs unchunked pass 2;
 - K1''s screen plane vs ``make_pallas_hash_loc(..., screen_sigs=N)``.
 Every value is an integer: compared exactly."""
@@ -30,15 +33,20 @@ from kmcp_tpu.search.pallas_hash import make_pallas_hash_loc
 from kmcp_tpu_torch.search.device_step import target_floor
 from kmcp_tpu_torch.search.group_count import (
     TILE,
-    block_tiles,
     build_u,
     gemm_slabs,
     group_count,
+    group_count_plain,
     s_pad_for,
 )
 from kmcp_tpu_torch.search.hash_loc import hash_loc
-from kmcp_tpu_torch.search.pair_count import pair_count
-from kmcp_tpu_torch.search.screen import screened_tail
+from kmcp_tpu_torch.search.pair_count import pair_count, pair_count_plain
+from kmcp_tpu_torch.search.screen import (
+    _pass2_gemm,
+    _pass2_pair,
+    active_pairs,
+    screened_tail,
+)
 
 from .test_pallas_pair import B, NB, S_BLOCK, T_BLOCK, _synthetic
 
@@ -193,24 +201,77 @@ def test_build_u_matches_jax_digit_product():
 
 
 def test_kernels_plain_match_on_pairs():
-    """K5' and K6' (plain versions) agree count for count on the same
-    pairs, with K6' fed in block-sorted tiles."""
+    """K5' and K6' (plain versions) agree count for count and mask word for
+    mask word on the same unsorted pairs, each written at its own row."""
     x = port_inputs(11)
     rng = np.random.default_rng(0)
     pb = torch.from_numpy(rng.integers(0, B, 50).astype(np.int32))
     pg = torch.from_numpy(rng.integers(0, NB, 50).astype(np.int32))
-    cthr = torch.zeros(B, dtype=torch.int32)
-    counts, _ = pair_count(x["bits_ext"], x["loc"], pb, pg, cthr, x["thr"])
-    slot, blk = block_tiles(pg, NB)
-    rows = torch.full((TILE * blk.shape[0],), B, dtype=torch.int64)
-    rows[slot] = pb.long()
-    loc_ext = torch.cat([x["loc"], x["loc"].new_full((1, x["loc"].shape[1]),
-                                                      S_BLOCK)])
-    u = build_u(loc_ext[rows], x["bits01"].shape[1])
-    g = group_count(x["bits01"], u, blk)
-    assert int(counts.max()) > 0
-    np.testing.assert_array_equal(g[slot].numpy(), counts.numpy())
-    assert not g[rows == B].any()  # padding slots count nothing
+    cthr = torch.from_numpy(rng.integers(0, 4, B).astype(np.int32))
+    counts, mask = pair_count(x["bits_ext"], x["loc"], pb, pg, cthr, x["thr"])
+    g_counts, g_mask = group_count(x["bits01"], x["loc"], pb, pg, cthr,
+                                   x["thr"], S_BLOCK)
+    assert int(counts.max()) > 0 and bool(mask.any())
+    np.testing.assert_array_equal(g_counts.numpy(), counts.numpy())
+    np.testing.assert_array_equal(g_mask.numpy(), mask.numpy())
+
+
+@pytest.mark.parametrize("seed", [3, 11])
+def test_pass2_gemm_matches_pair_route(seed):
+    """The K6' route (fused floors, rows at the pair's index, no restoring
+    sort) yields the K5' route's (pair, lane, count) triples in the same
+    order, on the tail's own active pairs, in one chunk and in chunks of
+    20 pairs."""
+    x = port_inputs(seed)
+    pb, pg = active_pairs(x["u_ext"], x["loc_u"], x["nk"], x["lens"],
+                          x["theta"], NB, MIN_LEN, DEDUP)
+    cthr = torch.from_numpy(
+        np.random.default_rng(seed).integers(0, 40, B).astype(np.int32))
+    assert pb.shape[0] > 20
+    want = _pass2_pair(x["bits_ext"], x["loc"], pb, pg, cthr, x["thr"], 1 << 20)
+    assert want[0].numel() > 0
+    for chunk in (1 << 20, 20):
+        got = _pass2_gemm(x["bits01"], x["loc"], pb, pg, cthr, x["thr"],
+                          S_BLOCK, chunk)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+@pytest.mark.parametrize("chunk", [None, 50])
+def test_gemm_tail_fused_floors_match_jax_gemm(chunk):
+    """The port's K6' tail (floors fused into the kernel's plain version)
+    equals the JAX tail's grouped GEMM route in interpret mode and the
+    port's K5' tail, byte for byte, whole and on pair chunks of 50."""
+    meta, aux = port_tail(3, "gemm", BIG, chunk_pairs=chunk)
+    for want_meta, want_aux in (jax_tail(3, "gemm", BIG),
+                                port_tail(3, "pair", BIG)):
+        np.testing.assert_array_equal(meta, want_meta)
+        np.testing.assert_array_equal(aux, want_aux)
+
+
+def test_group_count_plain_exact_at_multiplicity_256():
+    """A read whose 256 windows all hit one row (a homopolymer) counts 256
+    on that row's set targets: U holds 256 exactly in bf16, and the counts
+    and floors equal the plain pair count's."""
+    x = port_inputs(3)
+    Kr = 256
+    loc = np.full((4, Kr), S_BLOCK, dtype=np.int32)  # sentinel windows
+    loc[0, :] = 7  # multiplicity 256
+    loc[1, :255] = 9  # multiplicity 255 and one more row
+    loc[1, 255] = 10
+    loc[2, ::2] = 11  # multiplicity 128 and 128 sentinels; read 3: all
+    loc = torch.from_numpy(loc)
+    pb = torch.tensor([0, 1, 2, 3, 0], dtype=torch.int32)
+    pg = torch.tensor([0, 2, 1, 0, 1], dtype=torch.int32)
+    cthr = torch.tensor([256, 200, 0, 0], dtype=torch.int32)
+    got = group_count_plain(x["bits01"], loc, pb, pg, cthr, x["thr"], S_BLOCK)
+    want = pair_count_plain(x["bits_ext"], loc, pb, pg, cthr, x["thr"])
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    counts = got[0]
+    assert int(counts[0].max()) == 256 and int(counts[3].max()) == 0
+    assert set(counts[0].unique().tolist()) == {0, 256}
+    assert bool(got[1][0].any())  # 256 reaches the read floor 256
 
 
 @pytest.mark.parametrize("N", [1 << 20, 999_983])
