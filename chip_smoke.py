@@ -9,27 +9,28 @@ single-block DB and over a multi-block ``--block-screen --uniform-sigs`` DB
 from fixed seeds; nothing outside the checkout is read, and nothing of JAX
 or of the JAX package is imported here.
 
-Phases (each prints one status line; any failure raises, exit non-zero):
+Phases (each prints its status lines and its wall seconds; any failure
+raises, exit non-zero):
   1. device: a CUDA card, its name and power limit (nvidia-smi);
   2. build: nvcc builds the CUDA kernels from kmcp_tpu_torch/csrc/;
-  3. kernels: K1' hash_loc (also with the screen plane) and K2'
-     count_mask on the card at the main paths' shapes (wide, narrow, and
-     screened pass 1 over a 2^25-row union table), and the screened
-     pass-2 kernels K5' pair_count and K6' group_count at 32 and 128
-     blocks of 4,096 targets (random bits, 3,578 rows per block, 20,480 and
-     36,864 pairs of a 16,384-read batch), each exactly equal to its plain
-     PyTorch version (K6' also to K5''s counts and mask); CUDA event
-     times, median of 5 after a warm-up, of the kernels (their block sort
-     included), the plain versions and each pass-2 route as the tail runs
-     it (kernel + compaction); each kernel's bound (``bound``) from this
-     run's inputs; and for K6' the one PyTorch call that computes the same
-     grouped product (``torch._grouped_mm`` in bf16), timed as a yardstick
-     and used nowhere in the port;
+  3. kernels: K1' hash_loc (also with the screen plane, and at the paired
+     shape with the screen and value planes) and K2' count_mask on the card
+     at the main paths' shapes (wide, narrow, and screened pass 1 over a
+     2^25-row union table), and the screened pass-2 kernels K5' pair_count
+     and K6' group_count at 32 and 128 blocks of 4,096 targets (random bits,
+     3,578 rows per block, 20,480 and 36,864 pairs of a 16,384-read batch),
+     each exactly equal to its plain PyTorch version (K6' also to K5''s
+     counts and mask); CUDA event times, median of 5 after a warm-up, of the
+     kernels (their block sort included), the plain versions and each
+     pass-2 route as the tail runs it (kernel + compaction); each kernel's
+     bound (``bound``) from this run's inputs; and for K6' the one PyTorch
+     call that computes the same grouped product (``torch._grouped_mm`` in
+     bf16), timed as a yardstick and used nowhere in the port;
   4. main path: a 131,072-target single-block wide DB (2,048 synthetic
      genomes x 64 chunks, k=21, one hash, FPR 0.3; the recipe of
      tools/bench_large_t.py) and 65,536 150 bp reads (40 source genomes,
      10% random junk).  The TSV of the port on the card must be
-     byte-identical to the same path run with both kernels bound to their
+     byte-identical to the same path run with the kernels bound to their
      plain PyTorch versions on the card (the CPU run of the plain versions
      would take about half an hour at this width), both kernels must have
      launched, and every read drawn from a DB genome must have that genome
@@ -43,14 +44,26 @@ Phases (each prints one status line; any failure raises, exit non-zero):
      ``--tpu-native --block-screen --uniform-sigs`` (32 blocks of 4,096
      targets with union screens), the same 65,536 reads searched on the
      card with pass2="gemm", "pair" and "auto" (``screen.pass2_kernel``);
-     every TSV byte-identical to the port's ``--device cpu`` run
-     (pass2="pair": the plain pair count is cheap on the CPU, as only
-     active pairs are counted), every source read best-hits its genome,
-     hash_loc and count_mask (pass 1) launch in every run, group_count
-     only where the run's pass-2 kernel is "gemm" and pair_count only
-     where it is "pair", and no read takes the object engine; then a
-     rerun of the gemm and pair runs with stage timers (a synchronised
-     host clock) gives the time by stage.
+     every TSV byte-identical to the run with the kernels bound to their
+     plain versions on the card (pass2="pair"), every source read best-hits
+     its genome, hash_loc and count_mask (pass 1) launch in every run,
+     group_count only where the run's pass-2 kernel is "gemm" and
+     pair_count only where it is "pair", and no read takes the object
+     engine; then a rerun of the gemm and pair runs with stage timers (a
+     synchronised host clock) gives the time by stage;
+  7. paired reads: 65,536 pairs from phase 4's 40 source genomes (mate 1
+     150 bp of a genome chunk, mate 2 the reverse complement of the 150 bp
+     starting 200 bp downstream, in the same chunk; 10% of the pairs with a
+     random junk mate 2), searched with ``run_search(read1=, read2=)`` on
+     phase 4's one-block DB (the dense tail: K1' with the value plane, the
+     in-step dedup of the 260-window joined rows, K2') and on phase 6's
+     screened DB with pass2="auto" (K1' with the screen and value planes,
+     the dedup, K2' pass 1, K5'); each TSV byte-identical to the run with
+     the kernels bound to their plain versions on the card, every source
+     pair best-hits its genome, K1' and K2' launch in both runs, K5' in the
+     screened run only, no pair takes the object engine; then a stage-timed
+     rerun of each gives the steady pairs/s, the dedup as a stage of its
+     own.
 Every main-path run sets all four kernels' launch counts to 0 just before
 it and reads them just after.
 Then one JSON line of kernel results, the card's name and power limit, and
@@ -122,6 +135,20 @@ def time_ms(torch, fn, reps: int = 5) -> float:
     return float(np.median(times))
 
 
+def graph_ms(torch, fn, n: int = 20, reps: int = 5) -> float:
+    """Device ms per launch of fn(): n calls captured in a CUDA graph (after
+    one call outside it), replayed between CUDA events, median of reps.  For
+    a kernel of tens of microseconds the time of one call (``time_ms``)
+    also holds the host's enqueue of the launch, while the card waits."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(n):
+            fn()
+    return time_ms(torch, g.replay, reps) / n
+
+
 def bound(nbytes: float, flops: float = 0.0,
           rate: float = BF16_FLOP_PER_S) -> tuple[float, str]:
     """(bound_ms, bound_by): the least time the card could take for work
@@ -154,6 +181,19 @@ def random_reads(rng, n: int, lmax: int) -> np.ndarray:
                     READ_LEN)
     mat[np.arange(lmax)[None, :] >= lens[:, None]] = 0
     return mat
+
+
+def random_pairs(rng, n: int, lmax: int) -> np.ndarray:
+    """[n, lmax] zero-padded joined pair rows mate1 + N + mate2, the mates
+    as ``random_reads`` makes them (one in eight mates shorter)."""
+    m1, m2 = random_reads(rng, n, READ_LEN), random_reads(rng, n, READ_LEN)
+    out = np.zeros((n, lmax), dtype=np.uint8)
+    for i in range(n):
+        a = m1[i][m1[i] != 0].tobytes()
+        b = m2[i][m2[i] != 0].tobytes()
+        row = a + b"N" + b if b else a
+        out[i, : len(row)] = np.frombuffer(row, np.uint8)
+    return out
 
 
 def random_bits(rng, rows: int, words: int, ands: int, ors: int):
@@ -194,13 +234,8 @@ def phase_kernels(torch, dev) -> dict:
         err = max(max_abs_err(torch, loc, loc_p), max_abs_err(torch, nk, nk_p))
         if err:
             raise AssertionError(f"hash_loc {label}: max abs err {err}")
-        ms = time_ms(torch, lambda: hash_loc(reads, K, S, full, h))
-        ms_p = time_ms(torch, lambda: hash_loc_plain(reads, K, S, full, h))
-        bd = bound(nbytes(reads, loc, nk))
-        log(f"phase 3 hash_loc [{label}] B={B} lmax={lmax}: exact "
-            f"(max abs err 0); kernel {ms:.3f} ms, plain {ms_p:.3f} ms, "
-            f"bound {bd[0]:.4f} ms ({bd[1]})")
-        res["hash_loc"].append((label, err, ms, ms_p, bd))
+        res["hash_loc"].append(time_hash_loc(
+            torch, label, (reads, K, S, full, h), (loc, nk)))
 
         T = 32 * W
         Bc = min(B, max(1, COUNTS_BYTES // (4 * T)))
@@ -225,15 +260,22 @@ def phase_kernels(torch, dev) -> dict:
     err = max(max_abs_err(torch, g, w) for g, w in zip(got, want))
     if err:
         raise AssertionError(f"hash_loc screen plane: max abs err {err}")
-    ms = time_ms(torch, lambda: hash_loc(reads, K, S, full, 1, screen_sigs=N))
-    ms_p = time_ms(torch, lambda: hash_loc_plain(reads, K, S, full, 1,
-                                                 screen_sigs=N))
-    label = f"screen S={S} N={N} h=1"
-    bd = bound(nbytes(reads, *got))
-    log(f"phase 3 hash_loc [{label}] B={B} lmax={lmax}: exact (max abs err "
-        f"0); kernel {ms:.3f} ms, plain {ms_p:.3f} ms, bound {bd[0]:.4f} ms "
-        f"({bd[1]})")
-    res["hash_loc"].append((label, err, ms, ms_p, bd))
+    res["hash_loc"].append(time_hash_loc(
+        torch, f"screen S={S} N={N} h=1", (reads, K, S, full, 1, N), got))
+
+    # the paired path's hash: 150 + N + 150 bp joined rows in lmax = 320,
+    # the block-row, screen and value planes in one launch
+    pairs = torch.from_numpy(random_pairs(rng, B, 320)).to(dev)
+    args = (pairs, K, S, full, 1, N, True)
+    got_p = hash_loc(*args)
+    want_p = hash_loc_plain(*args)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(torch, g, w) for g, w in zip(got_p, want_p))
+    if err:
+        raise AssertionError(f"hash_loc paired: max abs err {err}")
+    res["hash_loc"].append(time_hash_loc(
+        torch, f"paired S={S} N={N} h=1 values", args, got_p))
+    del pairs, got_p, want_p
 
     # screened pass 1: K2' over the packed union table of 32 blocks (one
     # word a row, N rows), every read of the batch, floors 0
@@ -243,6 +285,25 @@ def phase_kernels(torch, dev) -> dict:
         torch, f"pass1 S={N} h=1 W=1", union, got[2].unsqueeze(2).contiguous(),
         zeros, zeros[:32]))
     return res
+
+
+def time_hash_loc(torch, label, args, outs) -> tuple:
+    """K1' on hash_loc(*args), already held exact against its plain
+    version -> (label, 0, device ms a launch, plain ms, bound, ms of one
+    call): the bound counts the reads read once and every output plane
+    written once."""
+    from kmcp_tpu_torch.search.hash_loc import hash_loc, hash_loc_plain
+
+    ms = graph_ms(torch, lambda: hash_loc(*args))
+    call = time_ms(torch, lambda: hash_loc(*args))
+    ms_p = time_ms(torch, lambda: hash_loc_plain(*args))
+    bd = bound(nbytes(args[0], *outs))
+    B, lmax = args[0].shape
+    log(f"phase 3 hash_loc [{label}] B={B} lmax={lmax}: exact (max abs err "
+        f"0); kernel {ms:.4f} ms a launch on the card (CUDA graph), "
+        f"{call:.4f} ms one call, plain {ms_p:.3f} ms, bound {bd[0]:.4f} ms "
+        f"({bd[1]})")
+    return label, 0, ms, ms_p, bd, call
 
 
 def check_count_mask(torch, label, bits, loc, cthr, thr) -> tuple:
@@ -472,6 +533,46 @@ def write_reads(path: str, genomes: list[bytes], seed: int) -> int:
     return N_READS - n_junk
 
 
+def write_pairs(path1: str, path2: str, genomes: list[bytes], seed: int,
+                chunks: int) -> int:
+    """N_READS read pairs as two FASTQ files, from the 40 source genomes
+    write_reads(seed) draws: mate 1 is 150 bp of a genome, mate 2 the
+    reverse complement of the 150 bp starting 200 bp downstream, the
+    350 bp fragment inside one of the genome's ``chunks`` compute chunks
+    (so that one target holds all of the pair's k-mers); pairs named
+    r<i>.<genome>.  10% of the pairs, named j<i>, have a random junk mate 2
+    instead.  Returns the number of source pairs."""
+    from kmcp_tpu_torch.seqio.fastx import split_chunk_size
+
+    rng = np.random.default_rng(seed)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    pool = rng.choice(len(genomes), size=min(40, len(genomes)),
+                      replace=False)
+    glen = len(genomes[0])
+    size, step = split_chunk_size(glen, chunks, READ_LEN, circular=False)
+    frag = 200 + READ_LEN
+    rc = bytes.maketrans(b"ACGT", b"TGCA")
+    n_junk = N_READS // 10
+    qual = "I" * READ_LEN
+    with open(path1, "w") as f1, open(path2, "w") as f2:
+        for i in range(N_READS):
+            gi = int(pool[rng.integers(0, len(pool))])
+            g = genomes[gi]
+            c = int(rng.integers(0, chunks))
+            end = min(c * step + size, glen)
+            p = c * step + int(rng.integers(0, end - c * step - frag + 1))
+            m1 = g[p : p + READ_LEN].decode()
+            if i < N_READS - n_junk:
+                name = f"r{i}.g{gi:05d}"
+                m2 = g[p + 200 : p + frag].translate(rc)[::-1].decode()
+            else:
+                name = f"j{i}"
+                m2 = rng.choice(bases, size=READ_LEN).tobytes().decode()
+            f1.write(f"@{name}\n{m1}\n+\n{qual}\n")
+            f2.write(f"@{name}\n{m2}\n+\n{qual}\n")
+    return N_READS - n_junk
+
+
 def check_best_hits(path: str, n_source: int) -> None:
     """Every source read r<i>.<genome> must have <genome> as its first (best)
     hit: its own chunk covers all its k-mers, and another genome's chunk
@@ -514,24 +615,52 @@ def counted_run(fn, *args, **kwargs):
     return out, {n: k.launches for n, k in kernels.items()}, wall
 
 
+def searched(db: str, out: str, **kwargs) -> dict:
+    """run_search(db, out_file=out, **kwargs) as counted_run runs it ->
+    its TSV bytes, ``out``, stats, wall seconds, (total, matched) and
+    launches."""
+    from kmcp_tpu_torch.commands.search import run_search
+
+    stats: dict = {}
+    totals, launches, wall = counted_run(run_search, db, out_file=out,
+                                         verbose=False, stats=stats, **kwargs)
+    with open(out, "rb") as f:
+        tsv = f.read()
+    return {"tsv": tsv, "out": out, "stats": stats, "wall": wall,
+            "totals": totals, "launches": launches}
+
+
 @contextlib.contextmanager
 def plain_kernels():
-    """Bind the main path's two kernel calls to their plain PyTorch
-    versions, so the same path runs without the CUDA kernels."""
-    from kmcp_tpu_torch.search import device, device_step
+    """Bind the main paths' kernel calls (K1', K2' in the dense tail and in
+    screened pass 1, K5' and K6' in pass 2) to their plain PyTorch
+    versions, so the same paths run without the CUDA kernels."""
+    from kmcp_tpu_torch.search import device, device_step, screen
     from kmcp_tpu_torch.search.count import count_mask_plain
+    from kmcp_tpu_torch.search.group_count import group_count_plain
     from kmcp_tpu_torch.search.hash_loc import hash_loc_plain
+    from kmcp_tpu_torch.search.pair_count import pair_count_plain
 
-    saved = device.hash_loc, device_step.count_mask
-    device.hash_loc = hash_loc_plain
-    device_step.count_mask = (
-        lambda bits, loc, cthr, thr, rows_checked=False:
-        count_mask_plain(bits, loc, cthr, thr)
-    )
+    def count(bits, loc, cthr, thr, rows_checked=False):
+        return count_mask_plain(bits, loc, cthr, thr)
+
+    def pair(bits, loc, pb, pg, cthr, thr, rows_checked=False):
+        return pair_count_plain(bits, loc, pb, pg, cthr, thr)
+
+    def group(bits01, loc, pb, pg, cthr, thr, s_block, rows_checked=False):
+        return group_count_plain(bits01, loc, pb, pg, cthr, thr, s_block)
+
+    binds = [(device, "hash_loc", hash_loc_plain),
+             (device_step, "count_mask", count), (screen, "count_mask", count),
+             (screen, "pair_count", pair), (screen, "group_count", group)]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in binds]
+    for obj, name, fn in binds:
+        setattr(obj, name, fn)
     try:
         yield
     finally:
-        device.hash_loc, device_step.count_mask = saved
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
 
 
 def phase_main_path(torch, dev, label: str, db: str, reads: str,
@@ -614,8 +743,9 @@ def stage_timers(torch, acc: dict):
     """Time a search's stages on a synchronised host clock, by wrapping
     the functions it calls: the DB set-up (host arrays, of which the union
     screens' packing, then the upload; the engine's open and check before
-    it, and the streamer set-up around it), the device hash, the dense
-    tail and its K2' launches, or the screened pass 1, pass-2 kernels,
+    it, and the streamer set-up around it), the device hash, the paired
+    mode's dedup, the dense tail and its K2' launches, or the screened
+    pass 1, pass-2 kernels,
     whole pass-2 routes and packing with its D2H copy, and the TSV writer;
     seconds accumulate in ``acc``."""
     from kmcp_tpu_torch.commands import search as command
@@ -631,6 +761,8 @@ def stage_timers(torch, acc: dict):
                (device, "hash_loc", "hash"),
                (device, "count_tail", "dense_tail"),
                (device_step, "count_mask", "dense_count_kernel"),
+               (device_step, "dedup_planes", "dedup"),
+               (screen, "dedup_planes", "dedup"),
                (screen, "active_pairs", "pass1"),
                (screen, "pair_count", "pass2_kernel"),
                (screen, "group_count", "pass2_kernel"),
@@ -661,11 +793,10 @@ def stage_timers(torch, acc: dict):
 
 def phase_screened(torch, dev, ks: str, reads: str, n_source: int) -> dict:
     """Phase 6: the screened main path on a 32-block DB of phase 4's
-    chunks, pass2="gemm", "pair" and "auto" on the card against the port's
-    CPU run (pass2="pair"); then a stage-timed run of the gemm and pair
-    routes."""
+    chunks, pass2="gemm", "pair" and "auto" on the card against the same
+    path with the kernels bound to their plain versions on the card
+    (pass2="pair"); then a stage-timed run of the gemm and pair routes."""
     from kmcp_tpu_torch.cli import main as cli
-    from kmcp_tpu_torch.commands.search import run_search
     from kmcp_tpu_torch.search.engine import SearchOptions
     from kmcp_tpu_torch.search.screen import pass2_kernel
 
@@ -677,22 +808,15 @@ def phase_screened(torch, dev, ks: str, reads: str, n_source: int) -> dict:
         raise RuntimeError("index of the screened DB failed")
     index_s = time.time() - t0
 
-    def search(pass2: str, device, tag: str) -> dict:
-        out = os.path.join(SCRATCH, f"screened.{tag}.tsv")
-        stats: dict = {}
-        totals, launches, wall = counted_run(
-            run_search, db, [reads], out_file=out, device=device,
-            verbose=False, stats=stats, pass2=pass2)
-        with open(out, "rb") as f:
-            tsv = f.read()
-        return {"tsv": tsv, "out": out, "stats": stats, "wall": wall,
-                "totals": totals, "launches": launches}
+    def search(pass2: str, tag: str) -> dict:
+        return searched(db, os.path.join(SCRATCH, f"screened.{tag}.tsv"),
+                        files=[reads], device=dev, pass2=pass2)
 
-    runs = {p: search(p, dev, f"{dev.type}.{p}")
-            for p in ("gemm", "pair", "auto")}
-    ref = search("pair", "cpu", "cpu.pair")
+    runs = {p: search(p, p) for p in ("gemm", "pair", "auto")}
+    with plain_kernels():
+        ref = search("pair", "plain.pair")
     if any(ref["launches"].values()):
-        raise AssertionError("phase 6: the CPU run launched a kernel")
+        raise AssertionError("phase 6: the plain run launched a kernel")
     st = ref["stats"]
     if st["n_blocks"] < 2 or st["pass2"] != "pair":
         raise AssertionError(f"phase 6: not a screened run: {st}")
@@ -703,7 +827,7 @@ def phase_screened(torch, dev, ks: str, reads: str, n_source: int) -> dict:
         tag = f"phase 6 screened {p2}"
         want = auto if p2 == "auto" else p2
         if run["tsv"] != ref["tsv"]:
-            raise AssertionError(f"{tag}: TSV differs from the CPU run")
+            raise AssertionError(f"{tag}: TSV differs from the plain run")
         if run["totals"] != ref["totals"] or run["totals"][0] != N_READS:
             raise AssertionError(f"{tag}: totals {run['totals']} vs "
                                  f"{ref['totals']}")
@@ -720,11 +844,11 @@ def phase_screened(torch, dev, ks: str, reads: str, n_source: int) -> dict:
         f"x {st['words']} words ({32 * st['words']} targets a block), union "
         f"screen {st['union_rows']} rows; indexed in {index_s:.1f} s")
     for p2, run in runs.items():
-        log(f"phase 6 screened {p2}: TSV byte-identical to the CPU run "
+        log(f"phase 6 screened {p2}: TSV byte-identical to the plain run "
             f"({len(run['tsv'])} bytes, {run['totals'][1]}/{run['totals'][0]}"
             f" reads matched, all {n_source} source reads best-hit their "
             f"genome); {N_READS / run['wall']:.1f} reads/s (run_search wall "
-            f"incl. DB load), CPU run {N_READS / ref['wall']:.1f} reads/s; "
+            f"incl. DB load), plain run {N_READS / ref['wall']:.1f} reads/s; "
             f"{run['stats']['pairs']} active pairs, 4x retries "
             f"{run['stats']['retries']}, slow rows 0, launches "
             f"{run['launches']}")
@@ -733,7 +857,7 @@ def phase_screened(torch, dev, ks: str, reads: str, n_source: int) -> dict:
     for p2 in ("gemm", "pair"):
         acc: dict = {}
         with stage_timers(torch, acc):
-            run = search(p2, dev, f"{dev.type}.{p2}.timed")
+            run = search(p2, f"{p2}.timed")
         if run["tsv"] != ref["tsv"]:
             raise AssertionError(f"phase 6 timed {p2}: TSV differs")
         acc["compaction"] = (acc.pop("pass2_route")
@@ -743,7 +867,62 @@ def phase_screened(torch, dev, ks: str, reads: str, n_source: int) -> dict:
             + ", ".join(f"{k} {v:.4f}" for k, v in acc.items())
             + f"; run_search wall {run['wall']:.3f}")
     return {"launches": {p: r["launches"] for p, r in runs.items()},
-            "breakdown": breakdown}
+            "breakdown": breakdown, "db": db}
+
+
+def phase_paired(torch, dev, label: str, db: str, r1: str, r2: str,
+                 n_source: int, screened: bool) -> dict:
+    """Phase 7 on one DB: the paired search on the card against the same
+    path with the kernels bound to their plain versions on the card (TSVs
+    byte-identical), its launches and best hits checked; then a
+    stage-timed rerun.  ``screened``: the DB is phase 6's (pass2="auto",
+    which picks K5'), else phase 4's one-block DB (the dense tail)."""
+    def search(tag: str) -> dict:
+        return searched(db, os.path.join(SCRATCH, f"paired.{label}.{tag}.tsv"),
+                        read1=r1, read2=r2, device=dev, pass2="auto")
+
+    run = search("cuda")
+    with plain_kernels():
+        ref = search("plain")
+    tag = f"phase 7 paired {label}"
+    if any(ref["launches"].values()):
+        raise AssertionError(f"{tag}: the plain run launched a kernel")
+    if run["tsv"] != ref["tsv"]:
+        raise AssertionError(f"{tag}: TSV differs from the plain run")
+    if run["totals"] != ref["totals"] or run["totals"][0] != N_READS:
+        raise AssertionError(f"{tag}: totals {run['totals']} vs "
+                             f"{ref['totals']}")
+    check_best_hits(run["out"], n_source)
+    la, st = run["launches"], run["stats"]
+    want = ["hash_loc", "count_mask"] + (["pair_count"] if screened else [])
+    if (min(la[n] for n in want) == 0
+            or any(la[n] for n in la if n not in want)):
+        raise AssertionError(f"{tag}: launches {la}")
+    if st["slow_rows"] or (st["n_blocks"] > 1) != screened:
+        raise AssertionError(f"{tag}: stats {st}")
+    log(f"{tag}: TSV byte-identical to the plain run ({len(run['tsv'])} "
+        f"bytes, {run['totals'][1]}/{run['totals'][0]} pairs matched, all "
+        f"{n_source} source pairs best-hit their genome); "
+        f"{N_READS / run['wall']:.1f} pairs/s (run_search wall incl. DB "
+        f"load), plain run {N_READS / ref['wall']:.1f} pairs/s; "
+        f"{st['pairs']} active (read, block) pairs, 4x retries "
+        f"{st['retries']}, slow rows 0, launches {la}")
+    acc: dict = {}
+    with stage_timers(torch, acc):
+        timed = search("cuda.timed")
+    if timed["tsv"] != ref["tsv"]:
+        raise AssertionError(f"{tag} timed: TSV differs")
+    if "pass2_route" in acc:
+        acc["compaction"] = acc.pop("pass2_route") - acc.get("pass2_kernel",
+                                                             0.0)
+    steady = timed["wall"] - sum(acc.get(k, 0.0) for k in (
+        "engine_open", "engine_check", "streamer_setup"))
+    log(f"{tag} stages (synchronised host clock, s): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in acc.items())
+        + f"; run_search wall {timed['wall']:.3f}; steady "
+        f"{N_READS / steady:.1f} pairs/s (without engine open and streamer "
+        "set-up)")
+    return {"launches": la, "breakdown": acc}
 
 
 def main() -> int:
@@ -770,8 +949,11 @@ def main() -> int:
         f"{_build.build_seconds if _build.build_seconds is not None else 0:.1f}"
         f" s); ptxas: {' | '.join(ptxas)}")
 
+    walls: dict = {}
+    t0 = time.time()
     kern = phase_kernels(torch, dev)
     kern.update(phase_pass2(torch, dev))
+    walls["3 kernels"] = time.time() - t0
 
     os.makedirs(SCRATCH, exist_ok=True)
     t0 = time.time()
@@ -779,11 +961,15 @@ def main() -> int:
     build_s = time.time() - t0
     wide_reads = os.path.join(SCRATCH, "wide.reads.fq")
     wide_source = write_reads(wide_reads, genomes, 7)
+    pair_files = (os.path.join(SCRATCH, "pairs.r1.fq"),
+                  os.path.join(SCRATCH, "pairs.r2.fq"))
+    pair_source = write_pairs(*pair_files, genomes, 7, WIDE_CHUNKS)
     del genomes
     log(f"phase 4 DB: {WIDE_GENOMES * WIDE_CHUNKS} targets built in "
         f"{build_s:.1f} s")
     wide = phase_main_path(torch, dev, "phase 4 wide", wide_db, wide_reads,
                            wide_source, "plain", timed=True)
+    walls["4 wide"] = time.time() - t0
 
     t0 = time.time()
     narrow_db, genomes = build_db("narrow", NARROW_GENOMES, NARROW_CHUNKS,
@@ -795,9 +981,23 @@ def main() -> int:
         f"built in {time.time() - t0:.1f} s")
     narrow = phase_main_path(torch, dev, "phase 5 narrow", narrow_db, reads,
                              n_source, "cpu")
+    walls["5 narrow"] = time.time() - t0
 
+    t0 = time.time()
     screened = phase_screened(torch, dev, os.path.join(SCRATCH, "wide", "ks"),
                               wide_reads, wide_source)
+    walls["6 screened"] = time.time() - t0
+
+    t0 = time.time()
+    paired = {
+        "dense": phase_paired(torch, dev, "dense", wide_db, *pair_files,
+                              pair_source, screened=False),
+        "screened": phase_paired(torch, dev, "screened", screened["db"],
+                                 *pair_files, pair_source, screened=True),
+    }
+    walls["7 paired"] = time.time() - t0
+    for name, w in walls.items():
+        log(f"phase {name}: {w:.1f} s")
 
     sources = {
         "hash_loc": ("kmcp_tpu_torch/csrc/hash_loc.cu",
@@ -815,13 +1015,19 @@ def main() -> int:
         by_path = {"phase 4 wide": wide["launches"][name],
                    "phase 5 narrow": narrow["launches"][name],
                    **{f"phase 6 {p}": n[name]
-                      for p, n in screened["launches"].items()}}
+                      for p, n in screened["launches"].items()},
+                   **{f"phase 7 {p}": r["launches"][name]
+                      for p, r in paired.items()}}
 
         def timed(r) -> dict:
-            # only K6' has a one-call library counterpart
-            return {"shape": r[0], "ms": r[2], "plain_ms": r[3],
-                    "bound_ms": r[4][0], "bound_by": r[4][1],
-                    "library_ms": r[6] if len(r) > 6 else None}
+            # only K6' has a one-call library counterpart; K1''s ms is the
+            # device time a launch, with the time of one call beside it
+            out = {"shape": r[0], "ms": r[2], "plain_ms": r[3],
+                   "bound_ms": r[4][0], "bound_by": r[4][1],
+                   "library_ms": r[6] if len(r) > 6 else None}
+            if name == "hash_loc":
+                out["call_ms"] = r[5]
+            return out
 
         entry = {
             "name": name, "route": "cuda", "source": src,
@@ -829,7 +1035,7 @@ def main() -> int:
             "launches_by_path": by_path,
             "max_abs_err": max(r[1] for r in rows), **timed(rows[0]),
         }
-        if len(rows[0]) > 5:  # the pass-2 kernels: the whole route too
+        if name in ("pair_count", "group_count"):  # the whole route too
             entry["route_ms"] = rows[0][5]
         entry["more"] = [timed(r) for r in rows[1:]]
         kernels.append(entry)

@@ -1,8 +1,9 @@
-"""``search`` on a torch device: single-end reads streamed against a
-one-block DB or a multi-block ``--block-screen --uniform-sigs`` DB.
+"""``search`` on a torch device: single-end reads or read pairs streamed
+against a one-block DB or a multi-block ``--block-screen --uniform-sigs``
+DB.
 
 Port of kmcp_tpu/commands/search.py:74 ``run_search`` for the streaming
-path, and of its ``iter_queries`` (:20) for single-end reads.  Searches the
+path, and of its ``iter_queries`` (:20) for reads and pairs.  Searches the
 slice does not cover raise ``NotImplementedError`` naming the ROADMAP item
 that will add them; nothing falls back to another engine.
 """
@@ -25,8 +26,22 @@ from ..seqio.fastx import read_fastx, xopen
 
 def iter_queries(files: list[str], read1: str | None = None,
                  read2: str | None = None):
-    """Yield (id, seq, None) single-end queries from ``read1`` or ``read2``
-    (one of ``-1`` / ``-2`` alone), then ``files``, in order."""
+    """Yield (id, seq1, seq2) pairs from ``read1`` and ``read2`` zipped
+    (``files`` are then ignored, as in kmcp_tpu/commands/search.py:30-45),
+    else (id, seq, None) single-end queries from ``read1`` or ``read2`` (one
+    of ``-1`` / ``-2`` alone), then ``files``, in order."""
+    if read1 and read2:
+        it1, it2 = read_fastx(read1), read_fastx(read2)
+        for r1, r2 in zip(it1, it2):
+            yield r1.id, r1.seq, r2.seq
+        leftover = next(it1, None) or next(it2, None)
+        if leftover is not None:
+            print(
+                "[search] WARNING: -1/-2 files have unequal record counts; "
+                f"extra records from '{leftover.id}' on were ignored",
+                file=sys.stderr,
+            )
+        return
     first = read1 or read2
     for file in ([first] if first else []) + list(files):
         for rec in read_fastx(file):
@@ -58,19 +73,17 @@ def run_search(
     stats: dict | None = None,
     pass2: str = "auto",
 ) -> tuple[int, int]:
-    """Search reads against ``db_dir`` on ``device``; returns (total,
-    matched).  ``pass2`` picks the screened pass-2 kernel of a multi-block
-    DB ("pair", "gemm" or "auto").  ``stats``, when given, receives the
+    """Search reads, or the pairs of ``read1`` and ``read2``, against
+    ``db_dir`` on ``device``; returns (total, matched).  ``pass2`` picks
+    the screened pass-2 kernel of a multi-block DB ("pair", "gemm" or
+    "auto").  ``stats``, when given, receives the
     streamer's ``slow_rows`` and ``retries``, the DB's Bloom ``rows``, row
     ``words`` and ``n_blocks``, the pass-2 kernel that ran (``pass2``,
     None for one block), the union screen's ``union_rows`` and the active
     (read, block) ``pairs`` of pass 2 (both 0 for one block)."""
-    # single-end: the object engine's FPR cache takes the single-end size
-    opt = dataclasses.replace(opt or SearchOptions(), paired_fpr_buf=False)
-    if read1 and read2:
-        raise NotImplementedError(
-            "paired reads need paired streaming (ROADMAP A6)"
-        )
+    paired = bool(read1 and read2)
+    # the query-FPR cache's size follows the mode (fpr.py)
+    opt = dataclasses.replace(opt or SearchOptions(), paired_fpr_buf=paired)
     if whole_file:
         raise NotImplementedError(
             "whole-file queries (-g) need the object-engine counter "
@@ -81,7 +94,7 @@ def run_search(
     if not db_dirs:
         raise SystemExit(f"kmcp-tpu-torch search: invalid database: {db_dir}")
     engine = SearchEngine(db_dirs, opt)
-    reason = unsupported(engine)
+    reason = unsupported(engine, paired)
     if reason:
         raise NotImplementedError(reason)
     if opt.load_default_name_map and not opt.name_map:
@@ -108,8 +121,7 @@ def run_search(
         if not no_header_row:
             out.write(HEADER)
         total, matched = streamer.run(
-            iter_queries(files or [], read1, read2),
-            out,
+            iter_queries(files or [], read1, read2), out, paired=paired,
         )
         write_stats(out, total, matched)
     finally:

@@ -125,6 +125,8 @@ def build() -> str:
 def get_lib() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
@@ -132,7 +134,7 @@ def get_lib() -> ctypes.CDLL:
             i64, u64 = ctypes.c_longlong, ctypes.c_ulonglong
             lib.kmcp_hash_loc.argtypes = [
                 vp, i32, i32, i32, i64, u64, i32, u64, u64, u64, u64,
-                i64, vp, vp, vp, vp,
+                i64, vp, vp, vp, vp, vp,
             ]
             lib.kmcp_hash_loc.restype = i32
             lib.kmcp_count_mask.argtypes = [

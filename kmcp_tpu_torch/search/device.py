@@ -318,11 +318,16 @@ class TorchDeviceDB:
         return self._bits01
 
     def search_reads(self, reads: torch.Tensor, lens: np.ndarray,
-                     cand_budget: int) -> tuple[np.ndarray, np.ndarray]:
+                     cand_budget: int, dedup_values: bool = False
+                     ) -> tuple[np.ndarray, np.ndarray]:
         """reads uint8 [B, lmax] on the device (zero padded ASCII), lens
         [B] -> (meta int32, aux uint16) host arrays: the flat-id layout of
         the dense tail (one block) or the split-id layout of the screened
-        tail (device_step.py)."""
+        tail (device_step.py).  ``dedup_values`` is the paired mode
+        (device.py:622-715, :846-935): K1' also emits the window values and
+        the tail uniques each over-threshold read's windows in place of
+        excluding the read; for paired rows ``lens`` is max(len1, len2),
+        which feeds only the min-length filter."""
         opt = self.opt
         lmax = reads.shape[1]
         lens_t = torch.from_numpy(
@@ -331,20 +336,23 @@ class TorchDeviceDB:
         K = max(lmax - self.k + 1, 1)
         cmin = self.cmin_for(K)
         if self.screen is not None:
-            loc, nk, loc_u = hash_loc(
+            outs = hash_loc(
                 reads, self.k, self.s_block, self.max_hash, 1,
-                screen_sigs=self.screen["num_bits"],
+                screen_sigs=self.screen["num_bits"], values=dedup_values,
             )
             return screened_tail(
-                self.bits_ext, self.screen["u_ext"], loc[:, :, 0], loc_u, nk,
-                lens_t, cmin, self.theta_for(K), self.thr, cand_budget,
-                opt.min_query_len, opt.kmer_dedup_threshold, self.pass2,
+                self.bits_ext, self.screen["u_ext"], outs[0][:, :, 0],
+                outs[2], outs[1], lens_t, cmin, self.theta_for(K), self.thr,
+                cand_budget, opt.min_query_len, opt.kmer_dedup_threshold,
+                self.pass2,
                 self.gemm_slabs() if self.pass2 == "gemm" else None,
-                stats=self.tail_stats,
+                stats=self.tail_stats, in_dedup=dedup_values,
+                values=outs[3] if dedup_values else None,
             )
-        loc, nk = hash_loc(reads, self.k, self.total_rows, self.max_hash,
-                           self.num_hashes)
+        outs = hash_loc(reads, self.k, self.total_rows, self.max_hash,
+                        self.num_hashes, values=dedup_values)
         return count_tail(
-            self.bits_ext, loc, nk, lens_t, cmin, self.thr[0], cand_budget,
-            opt.min_query_len, opt.kmer_dedup_threshold,
+            self.bits_ext, outs[0], outs[1], lens_t, cmin, self.thr[0],
+            cand_budget, opt.min_query_len, opt.kmer_dedup_threshold,
+            in_dedup=dedup_values, values=outs[2] if dedup_values else None,
         )

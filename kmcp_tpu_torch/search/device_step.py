@@ -2,10 +2,11 @@
 the ``(meta, aux)`` result layout.
 
 Port of the single-block count tail kmcp_tpu/search/device_step.py:559
-``_make_count_tail`` (``in_dedup=False``) and of its compaction,
-``_nonzero_asc`` / ``_compact_candidates`` (:97-137).  The kernel is K2'
-(search/count.py); thresholding inputs and compaction are plain torch, as
-the JAX package leaves them to XLA.
+``_make_count_tail`` (single-end, and with ``in_dedup`` the paired mode
+that uniques each over-threshold read's windows first, search/dedup.py)
+and of its compaction, ``_nonzero_asc`` / ``_compact_candidates``
+(:97-137).  The kernel is K2' (search/count.py); thresholding inputs and
+compaction are plain torch, as the JAX package leaves them to XLA.
 
 Result layout (device_step.py:578-583), as host numpy arrays:
   meta int32 [1 + budget] = [n_cand, flat ids b*T + t ascending...], padded
@@ -24,6 +25,7 @@ import numpy as np
 import torch
 
 from .count import check_rows, count_mask
+from .dedup import dedup_planes
 
 FLOOR_NEVER = 2**30  # a floor no count reaches (and max() cannot overflow)
 COUNTS_BYTES = 1 << 30  # int32 counts per read chunk stay near 1 GB
@@ -35,11 +37,15 @@ def target_floor(tmin: np.ndarray, sizes_pos: np.ndarray) -> np.ndarray:
 
 
 def read_floor(nk: torch.Tensor, lens: torch.Tensor, cmin: torch.Tensor,
-               min_len: int, dedup_threshold: int) -> torch.Tensor:
+               min_len: int, dedup_threshold: int, in_dedup: bool = False
+               ) -> torch.Tensor:
     """cthr[b] = cmin[min(nk, len(cmin)-1)], or FLOOR_NEVER for reads that
-    are too short or over the dedup threshold (device_step.py:672-680)."""
+    are too short or, unless ``in_dedup`` (their windows were uniqued
+    instead), over the dedup threshold (device_step.py:672-680)."""
     c = cmin[nk.clamp(0, cmin.shape[0] - 1).long()]
-    excl = (lens < min_len) | (nk > dedup_threshold)
+    excl = lens < min_len
+    if not in_dedup:
+        excl = excl | (nk > dedup_threshold)
     return torch.where(excl, FLOOR_NEVER, c).to(torch.int32)
 
 
@@ -100,14 +106,18 @@ def pack_result_split(q: torch.Tensor, t: torch.Tensor, cnt: torch.Tensor,
 def count_tail(bits_ext: torch.Tensor, loc: torch.Tensor, nk: torch.Tensor,
                lens: torch.Tensor, cmin: torch.Tensor, thr: torch.Tensor,
                budget: int, min_len: int, dedup_threshold: int,
-               chunk_reads: int | None = None
+               chunk_reads: int | None = None, in_dedup: bool = False,
+               values: torch.Tensor | None = None
                ) -> tuple[np.ndarray, np.ndarray]:
     """bits_ext int32 [S+1, W], loc int32 [B, K, h], nk/lens int32 [B],
     cmin int32 [n_max+1], thr int32 [32 W] -> (meta, aux).
 
     K2' runs on read chunks of ``chunk_reads`` (default: counts near
     COUNTS_BYTES); chunk-major concatenation keeps the flat ids
-    ascending."""
+    ascending.  With ``in_dedup`` (paired streaming) ``values`` int64
+    [B, K] are the window values: reads over ``dedup_threshold`` windows
+    are uniqued (``dedup_planes``, sentinel row S) instead of excluded, and
+    their nk, floors and reported k-mer counts are the unique counts."""
     if dedup_threshold >= 65535:
         raise ValueError(
             f"kmer_dedup_threshold {dedup_threshold} >= 65535 would "
@@ -117,7 +127,10 @@ def count_tail(bits_ext: torch.Tensor, loc: torch.Tensor, nk: torch.Tensor,
     T = 32 * bits_ext.shape[1]
     if chunk_reads is None:
         chunk_reads = max(1, COUNTS_BYTES // (4 * T))
-    cthr = read_floor(nk, lens, cmin, min_len, dedup_threshold)
+    if in_dedup:
+        (loc,), nk = dedup_planes(values, [loc], nk, dedup_threshold,
+                                  bits_ext.shape[0] - 1)
+    cthr = read_floor(nk, lens, cmin, min_len, dedup_threshold, in_dedup)
     check_rows(loc, bits_ext.shape[0])  # once per batch, not per chunk
     ids, cnts = [], []
     for b0 in range(0, B, chunk_reads):

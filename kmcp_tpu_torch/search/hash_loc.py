@@ -2,17 +2,23 @@
 
 Port of the Pallas kernel kmcp_tpu/search/pallas_hash.py:36
 ``make_pallas_hash_loc`` (loc planes, per-read valid-window count and, with
-``screen_sigs``, the screen plane of the two-pass screened search).  The
-CUDA kernel is ``kmcp_tpu_torch/csrc/hash_loc.cu``; ``hash_loc_plain`` is
-the same function in plain PyTorch, which CPU tensors take and which the
-tests and the chip smoke hold the kernel against.
+``screen_sigs``, the screen plane of the two-pass screened search; with
+``values``, the window values of ``emit_values``).  The CUDA kernel is
+``kmcp_tpu_torch/csrc/hash_loc.cu`` (its per-window arithmetic in
+``csrc/nthash_window.cuh``); ``hash_loc_plain`` is the same function in
+plain PyTorch, which CPU tensors take and which the tests and the chip
+smoke hold the kernel against.
 
 Output layout is read-major: ``loc`` int32 [B, K, h] (K = lmax - k + 1
 windows, invalid windows -> sentinel row ``num_sigs``) and ``nk`` int32 [B];
 with ``screen_sigs`` > 0 (one hash only, as ``_screen_geometry`` requires,
 kmcp_tpu/search/device_screened.py:38) also ``loc_u`` int32 [B, K], the
 full 64-bit ``h mod screen_sigs`` of the same windows with sentinel
-``screen_sigs`` (pallas_hash.py:282-286).
+``screen_sigs`` (pallas_hash.py:282-286); with ``values`` also ``vals``
+int64 [B, K], each valid window's 64-bit canonical hash (its bits; values
+past 2^63 read negative) and 0 for invalid windows: ``emit_values``'s
+(hi, lo) planes joined as (hi << 32) | lo (pallas_hash.py:287-289), the
+dedup key of paired streaming (search/dedup.py).
 """
 
 from __future__ import annotations
@@ -47,35 +53,42 @@ def _check(reads: torch.Tensor, k: int, num_sigs: int, num_hashes: int,
         raise ValueError("the screen plane needs num_hashes == 1")
 
 
+def _outputs(loc, nk, loc_u, vals) -> tuple:
+    """(loc, nk), then loc_u and vals where they were asked for."""
+    return (loc, nk) + tuple(t for t in (loc_u, vals) if t is not None)
+
+
 def hash_loc(reads: torch.Tensor, k: int, num_sigs: int, max_hash: int,
-             num_hashes: int = 1, screen_sigs: int = 0) -> tuple:
+             num_hashes: int = 1, screen_sigs: int = 0,
+             values: bool = False) -> tuple:
     """reads uint8 [B, lmax] (zero padded ASCII) -> (loc int32
-    [B, lmax-k+1, num_hashes], nk int32 [B]), plus loc_u int32
-    [B, lmax-k+1] when ``screen_sigs`` > 0 (one launch emits every plane).
-    A CPU tensor takes ``hash_loc_plain``; a CUDA tensor launches the
-    kernel or raises."""
+    [B, lmax-k+1, num_hashes], nk int32 [B]), then loc_u int32
+    [B, lmax-k+1] when ``screen_sigs`` > 0 and vals int64 [B, lmax-k+1]
+    when ``values`` (one launch emits every plane).  A CPU tensor takes
+    ``hash_loc_plain``; a CUDA tensor launches the kernel or raises."""
     if reads.device.type == "cpu":
         return hash_loc_plain(reads, k, num_sigs, max_hash, num_hashes,
-                              screen_sigs)
+                              screen_sigs, values)
     _check(reads, k, num_sigs, num_hashes, screen_sigs)
     B, lmax = reads.shape
     K = lmax - k + 1
-    loc = torch.empty((B, K, num_hashes), dtype=torch.int32,
-                      device=reads.device)
-    nk = torch.empty((B,), dtype=torch.int32, device=reads.device)
-    loc_u = (torch.empty((B, K), dtype=torch.int32, device=reads.device)
+    dev = reads.device
+    loc = torch.empty((B, K, num_hashes), dtype=torch.int32, device=dev)
+    nk = torch.empty((B,), dtype=torch.int32, device=dev)
+    loc_u = (torch.empty((B, K), dtype=torch.int32, device=dev)
              if screen_sigs else None)
-    stream = torch.cuda.current_stream(reads.device).cuda_stream
+    vals = torch.empty((B, K), dtype=torch.int64, device=dev) if values else None
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    stream = torch.cuda.current_stream(dev).cuda_stream
     rc = get_lib().kmcp_hash_loc(
         reads.data_ptr(), B, lmax, k, num_sigs, max_hash & _U64, num_hashes,
         int(SEED_A), int(SEED_C), int(SEED_G), int(SEED_T), screen_sigs,
-        loc.data_ptr(), loc_u.data_ptr() if screen_sigs else None,
-        nk.data_ptr(), stream,
+        loc.data_ptr(), ptr(loc_u), nk.data_ptr(), ptr(vals), stream,
     )
     if rc != 0:
         raise RuntimeError(f"hash_loc kernel launch failed: cuda error {rc}")
     hash_loc.launches += 1
-    return (loc, nk, loc_u) if screen_sigs else (loc, nk)
+    return _outputs(loc, nk, loc_u, vals)
 
 
 hash_loc.launches = 0
@@ -126,7 +139,8 @@ def _mod_u64(h: torch.Tensor, m: int) -> torch.Tensor:
 
 
 def hash_loc_plain(reads: torch.Tensor, k: int, num_sigs: int, max_hash: int,
-                   num_hashes: int = 1, screen_sigs: int = 0) -> tuple:
+                   num_hashes: int = 1, screen_sigs: int = 0,
+                   values: bool = False) -> tuple:
     """Plain PyTorch version of the kernel: a loop over positions,
     vectorised across reads.  torch has no unsigned 64-bit shifts or
     compares, so the values live in int64 with masked shifts and
@@ -144,7 +158,7 @@ def hash_loc_plain(reads: torch.Tensor, k: int, num_sigs: int, max_hash: int,
     nk = torch.zeros(B, dtype=torch.int32, device=dev)
     zero = torch.zeros_like(fh)
     j_off = torch.arange(num_hashes, dtype=torch.int64, device=dev)
-    locs, locs_u = [], []
+    locs, locs_u, vals = [], [], []
     for i in range(lmax):
         ok = okm[:, i]
         run = torch.where(ok, run + 1, 0)
@@ -171,8 +185,11 @@ def hash_loc_plain(reads: torch.Tensor, k: int, num_sigs: int, max_hash: int,
         if screen_sigs:
             locs_u.append(torch.where(valid, _mod_u64(hv, screen_sigs),
                                       screen_sigs))
+        if values:
+            vals.append(torch.where(valid, hv, zero))
         nk += valid.to(torch.int32)
     loc = torch.stack(locs, dim=1).to(torch.int32)
-    if screen_sigs:
-        return loc, nk, torch.stack(locs_u, dim=1).to(torch.int32)
-    return loc, nk
+    loc_u = (torch.stack(locs_u, dim=1).to(torch.int32) if screen_sigs
+             else None)
+    return _outputs(loc, nk, loc_u,
+                    torch.stack(vals, dim=1) if values else None)

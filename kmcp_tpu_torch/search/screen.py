@@ -4,7 +4,9 @@ block) pairs above the junk band, through K5' ``pair_count`` or K6'
 ``group_count``.
 
 Port of kmcp_tpu/search/device_screened.py:193 ``_make_screened_tail``
-(single-end, ``in_dedup=False``).  Pass 1 is K2' ``count_mask`` over the
+(single-end, and with ``in_dedup`` the paired mode that uniques each
+over-threshold read's windows in both location planes before either pass,
+search/dedup.py).  Pass 1 is K2' ``count_mask`` over the
 packed union table (one 32-block word per k-mer).  The active pairs come
 from ``torch.nonzero``, ascending (read, block); the JAX ``pair_budget``
 existed only for XLA's static shapes, so there is none: pass 2 runs on pair
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from .count import check_rows, count_mask
+from .dedup import dedup_planes
 from .device_step import (
     COUNTS_BYTES,
     mask_hits,
@@ -53,13 +56,14 @@ def pass2_kernel(n_blocks: int, w_block: int, s_block: int,
 
 def active_pairs(u_ext: torch.Tensor, loc_u: torch.Tensor, nk: torch.Tensor,
                  lens: torch.Tensor, theta: torch.Tensor, n_blocks: int,
-                 min_len: int, dedup_threshold: int
+                 min_len: int, dedup_threshold: int, in_dedup: bool = False
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Pass 1: union-hit counts of every read against every block (K2'
     over u_ext int32 [num_bits+1, ceil(nb/32)] with loc_u int32 [B, K]),
     kept where they reach theta[g, min(nk, n_max)] for reads that are long
-    enough and within the dedup threshold (device_screened.py:339-349).
-    Returns (pb, pg) int32 [P], ascending by (read, block)."""
+    enough and, unless ``in_dedup`` (their windows were uniqued instead),
+    within the dedup threshold (device_screened.py:339-349).  Returns
+    (pb, pg) int32 [P], ascending by (read, block)."""
     B, K = loc_u.shape
     Wu = u_ext.shape[1]
     dev = u_ext.device
@@ -70,7 +74,9 @@ def active_pairs(u_ext: torch.Tensor, loc_u: torch.Tensor, nk: torch.Tensor,
     )
     nkc = nk.clamp(0, theta.shape[1] - 1).long()
     th = theta.t()[nkc]  # [B, nb]
-    read_ok = (lens >= min_len) & (nk <= dedup_threshold)
+    read_ok = lens >= min_len
+    if not in_dedup:
+        read_ok = read_ok & (nk <= dedup_threshold)
     active = (ucnt[:, :n_blocks] >= th) & read_ok[:, None]
     pb, pg = torch.nonzero(active, as_tuple=True)
     return pb.to(torch.int32), pg.to(torch.int32)
@@ -117,7 +123,8 @@ def screened_tail(bits_ext: torch.Tensor, u_ext: torch.Tensor,
                   dedup_threshold: int, pass2: str = "pair",
                   bits01: torch.Tensor | None = None,
                   chunk_pairs: int | None = None,
-                  stats: dict | None = None
+                  stats: dict | None = None, in_dedup: bool = False,
+                  values: torch.Tensor | None = None
                   ) -> tuple[np.ndarray, np.ndarray]:
     """bits_ext int32 [nb*s_block+1, W_b] (row-stacked blocks, sentinel
     row last), u_ext int32 [num_bits+1, ceil(nb/32)], loc/loc_u int32
@@ -128,7 +135,12 @@ def screened_tail(bits_ext: torch.Tensor, u_ext: torch.Tensor,
     ``bits01`` (``gemm_slabs``).  Pass 2 runs on chunks of
     ``chunk_pairs`` pairs (default: int32 counts near COUNTS_BYTES).
     ``stats``, when given, has the batch's active pairs added to
-    ``stats["pairs"]``."""
+    ``stats["pairs"]``.  With ``in_dedup`` (paired streaming) ``values``
+    int64 [B, K] are the window values: reads over ``dedup_threshold``
+    windows are uniqued in both planes before either pass (sentinels
+    s_block and the union table's zero row num_bits, device_screened.py:
+    324-331) instead of excluded, and theta, the floors and the reported
+    k-mer counts take the unique counts."""
     if dedup_threshold >= 65535:
         raise ValueError(
             f"kmer_dedup_threshold {dedup_threshold} >= 65535 would "
@@ -141,10 +153,14 @@ def screened_tail(bits_ext: torch.Tensor, u_ext: torch.Tensor,
                          "threshold <= 256 (bf16 multiplicities)")
     n_blocks, T_b = thr.shape
     s_block = (bits_ext.shape[0] - 1) // n_blocks
+    if in_dedup:
+        (loc, loc_u), nk = dedup_planes(values, [loc, loc_u], nk,
+                                        dedup_threshold,
+                                        (s_block, u_ext.shape[0] - 1))
     check_rows(loc, s_block + 1)  # once per batch, not per pair chunk
     pb, pg = active_pairs(u_ext, loc_u, nk, lens, theta, n_blocks, min_len,
-                          dedup_threshold)
-    cthr = read_floor(nk, lens, cmin, min_len, dedup_threshold)
+                          dedup_threshold, in_dedup)
+    cthr = read_floor(nk, lens, cmin, min_len, dedup_threshold, in_dedup)
     if stats is not None:
         stats["pairs"] = stats.get("pairs", 0) + int(pb.shape[0])
     if chunk_pairs is None:

@@ -1,9 +1,9 @@
-"""Streaming single-end search on a torch device, over a one-block DB or a
-multi-block ``--block-screen --uniform-sigs`` DB.
+"""Streaming search of single-end reads or read pairs on a torch device,
+over a one-block DB or a multi-block ``--block-screen --uniform-sigs`` DB.
 
 Port of kmcp_tpu/search/stream.py ``StreamSearcher`` (``__init__``,
-``usable``, ``run``; :132-637) for its single-end, non-sketch device path
-(the dense tail for one block, the two-pass screened tail for several),
+``usable``, ``run``; :132-637) for its non-sketch device path (the dense
+tail for one block, the two-pass screened tail for several),
 with the port's own copies of its helpers ``_unpack_result`` (:65, the
 ``(meta, aux)`` layouts only), ``_pack_reads_matrix`` (:104),
 ``_fmt_ratio_memo`` (:118) and its writers ``_write_native`` (:641) and
@@ -11,9 +11,13 @@ with the port's own copies of its helpers ``_unpack_result`` (:65, the
 2-slots-per-read candidate budget, 4x overflow retry, ``lexsort`` order and
 the row bytes are the JAX streamer's.  Reads ship as ASCII rows.
 
-Reads over the k-mer dedup threshold take the object-engine route, as in
-the JAX streamer (stream.py:565-584), here with the numpy counter; they are
-counted in ``slow_rows``.
+Single-end reads over the k-mer dedup threshold take the object-engine
+route, as in the JAX streamer (stream.py:565-584), here with the numpy
+counter; they are counted in ``slow_rows``.  Read pairs hash as one joined
+row ``seq1 + N + seq2`` (the N resets the rolling window, so the row's
+k-mers are both mates'; stream.py:352-373, util-db-search.go:800-805), and
+rows over the threshold are uniqued on the device instead
+(search/dedup.py), so no pair takes the object engine for that.
 """
 
 from __future__ import annotations
@@ -75,8 +79,9 @@ def unsupported(engine: SearchEngine, paired: bool = False) -> str | None:
     if len(engine.dbs) != 1:
         return "searching several DBs at once needs the object engine (ROADMAP A8)"
     db = engine.dbs[0]
-    if paired:
-        return "paired reads need paired streaming (ROADMAP A6)"
+    if paired and opt.try_se:
+        return ("paired --try-se needs the object engine's retry plan "
+                "(ROADMAP A8)")
     if len(db.blocks) != 1 and not two_pass_ready(db):
         return MULTI_BLOCK_NEEDS
     if db.is_sketch:
@@ -123,11 +128,11 @@ class TorchStreamSearcher:
 
     def run(self, queries, out, start_idx: int = 0, paired: bool = False,
             progress=None) -> tuple[int, int]:
-        """queries: iterator of (id, seq, None).  Returns (total, matched)."""
-        if paired:
-            raise NotImplementedError(
-                "paired reads need paired streaming (ROADMAP A6)"
-            )
+        """queries: iterator of (id, seq, None), or with ``paired`` of (id,
+        seq1, seq2) (seq2 may be empty).  Returns (total, matched)."""
+        reason = unsupported(self.engine, paired)
+        if reason:
+            raise NotImplementedError(reason)
         dev = self.dev
         # the dense tail's int32 flat ids b*T + t cap the batch at
         # B*T <= 2^31 (the screened tail's split ids do not); batches stay
@@ -144,7 +149,7 @@ class TorchStreamSearcher:
             batch = list(islice(it, batch_size))
             if not batch:
                 break
-            m = self._search_batch(batch, batch_size, out, idx0, fmt)
+            m = self._search_batch(batch, batch_size, out, idx0, fmt, paired)
             total += len(batch)
             matched += m
             idx0 += len(batch)
@@ -158,14 +163,29 @@ class TorchStreamSearcher:
             )
         return total, matched
 
-    def _search_batch(self, batch, batch_size, out, idx0, fmt) -> int:
-        """Search, order and write one batch; returns its matched reads."""
+    def _search_batch(self, batch, batch_size, out, idx0, fmt,
+                      paired=False) -> int:
+        """Search, order and write one batch; returns its matched reads.
+        With ``paired`` each (id, seq1, seq2) hashes as one joined row; the
+        TSV's qLen is len1 + len2, and the min-length filter reads
+        max(len1, len2) (stream.py:352-373, :461-467)."""
         opt = self.opt
         dev = self.dev
         B = len(batch)
+        if paired:
+            seqs = [q[1] + b"N" + q[2] if q[2] else q[1] for q in batch]
+            qlen = np.array([len(q[1]) + len(q[2] or b"") for q in batch],
+                            dtype=np.int64)
+            eff = np.zeros(batch_size, dtype=np.int64)
+            eff[:B] = [max(len(q[1]), len(q[2] or b"")) for q in batch]
+        else:
+            seqs = [q[1] for q in batch]
         # pad to the fixed batch size (empty reads hit only the sentinel)
-        seqs = [q[1] for q in batch] + [b""] * (batch_size - B)
+        seqs = seqs + [b""] * (batch_size - B)
         lens = np.array([len(s) for s in seqs], dtype=np.int64)
+        if not paired:
+            qlen = lens[:B]
+            eff = lens
         budget = 2 * batch_size
         lmax = max(-(-int(lens.max()) // 32) * 32, self.k + 31)
         reads = torch.from_numpy(_pack_reads_matrix(seqs, lens, lmax)).to(
@@ -173,24 +193,27 @@ class TorchStreamSearcher:
         )
         T = dev.t_per_block
         n_cand, qi, t, cnt, nk = _unpack_result(
-            dev.search_reads(reads, lens, budget), budget, batch_size, T
+            dev.search_reads(reads, eff, budget, paired), budget, batch_size,
+            T
         )
         while qi is None:  # candidate overflow: re-run with 4x the budget
             budget *= 4
             self.retries += 1
             n_cand, qi, t, cnt, nk = _unpack_result(
-                dev.search_reads(reads, lens, budget), budget, batch_size, T
+                dev.search_reads(reads, eff, budget, paired), budget,
+                batch_size, T
             )
 
         counts = nk[:B]
-        lens = lens[:B]
         state = {
             "ids": [q[0] for q in batch],
             "counts": counts,
-            "qlen": lens,
-            "too_short": lens < opt.min_query_len,
+            "qlen": qlen,
+            "too_short": eff[:B] < opt.min_query_len,
         }
-        slow_rows = np.nonzero(counts > opt.kmer_dedup_threshold)[0]
+        # paired rows over the dedup threshold were uniqued on the device
+        slow_rows = (np.zeros(0, dtype=np.int64) if paired else
+                     np.nonzero(counts > opt.kmer_dedup_threshold)[0])
         if self.multi_k:
             # unmatched reads retry with the DB's smaller ks
             has_match = np.zeros(B, dtype=bool)

@@ -3,8 +3,11 @@ edge shapes the chip smoke does not reach (odd batch sizes, W = 1 and 33,
 h = 2 and 4, K past 255, scaled max_hash, k = 31; K1''s screen plane; K5'
 on narrow and wide blocks, unsorted pairs, empty and crowded blocks; K6'
 at ragged S_pad and T, partial and padding tiles, multiplicity 256,
-sentinel-only reads, FLOOR_NEVER floors, bit 31 and two sweeps), and the
-count and screened tails on the card against their CPU runs.  Marked ``cuda``:
+sentinel-only reads, FLOOR_NEVER floors, bit 31 and two sweeps; K1''s
+value plane at single-end and paired row lengths, every modulus path and
+rows too long to stage in shared memory), and the count and screened
+tails, single-end and paired (in_dedup), on the card against their CPU
+runs.  Marked ``cuda``:
 they skip without a card and run on the GPU machine with
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
@@ -319,6 +322,109 @@ def test_screened_tail_cuda_matches_cpu(cuda, pass2):
         bits01 = gemm_slabs(t[0], nb, s_block, 320) if pass2 == "gemm" else None
         outs.append(screened_tail(*t, 4096, 30, 256, pass2, bits01,
                                   chunk_pairs=200))
+    assert outs[0][0][0] > 0
+    np.testing.assert_array_equal(outs[0][0], outs[1][0])
+    np.testing.assert_array_equal(outs[0][1], outs[1][1])
+
+
+@pytest.mark.parametrize("lmax,S,h,N,values", [
+    (160, 3578, 1, 0, False),
+    (160, 3578, 1, 1 << 25, True),  # the screened path
+    (320, 3578, 1, 1 << 25, True),  # paired rows
+    (320, 3578, 1, 0, True),  # the paired dense path
+    (320, 1_850_000, 3, 0, True),
+    (160, 65536, 2, 0, True),
+    (96, 2**31 - 1, 4, 0, True),
+    (160, 999_983, 1, 999_983, False),
+    (12_000, 4099, 4, 0, True),  # no shared-memory staging
+])
+def test_hash_loc_value_plane_matches_plain(cuda, lmax, S, h, N, values):
+    """K1' with and without the value plane, at single-end (160) and
+    paired (320) rows, on reads with N runs and lower case."""
+    rng = np.random.default_rng(lmax + S % 1000 + h)
+    B = 64 if lmax > 1000 else 1000
+    mat = _reads(rng, B, lmax).numpy()
+    for b in range(0, B, 3):
+        p = int(rng.integers(0, lmax))
+        mat[b, p : p + 4] = ord("N")
+    reads = torch.from_numpy(mat).to(cuda)
+    n0 = hash_loc.launches
+    got = hash_loc(reads, 21, S, FULL, h, screen_sigs=N, values=values)
+    want = hash_loc_plain(reads, 21, S, FULL, h, screen_sigs=N,
+                          values=values)
+    torch.cuda.synchronize()
+    assert hash_loc.launches == n0 + 1
+    assert len(got) == len(want) == 2 + bool(N) + values
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert int(got[1].sum()) > 0
+
+
+def _paired_planes(rng, B, K, mods, thr):
+    """Value plane int64 [B, K] from a small pool (duplicates common) and
+    location planes that follow it, 15% invalid windows, every other read
+    cut to thr - 2 windows."""
+    pool = rng.integers(1, 2**62, 40, dtype=np.int64)
+    pick = rng.integers(0, 40, (B, K))
+    vals = pool[pick]
+    invalid = rng.random((B, K)) < 0.15
+    invalid |= (np.arange(B)[:, None] % 2 == 0) & (np.arange(K)[None] >= thr - 2)
+    vals[invalid] = 0
+    locs = []
+    for m in mods:
+        loc = (pool[pick] % m).astype(np.int32)
+        loc[invalid] = m
+        locs.append(loc)
+    return vals, locs, (~invalid).sum(axis=1).astype(np.int32)
+
+
+def test_count_tail_in_dedup_cuda_matches_cpu(cuda):
+    """The dense tail's paired mode (dedup, then K2') on the card equals
+    its CPU run."""
+    rng = np.random.default_rng(12)
+    S, W, B, K, thr = 3578, 64, 512, 300, 120
+    bits = _blocks(rng, 1, S, W)
+    vals, (loc,), nk = _paired_planes(rng, B, K, [S], thr)
+    arrays = (bits, loc[..., None], nk,
+              rng.integers(100, 160, B).astype(np.int32),
+              np.minimum(np.arange(K + 1, dtype=np.int32) // 3 + 5, K),
+              np.full(32 * W, 1, dtype=np.int32))
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+             for a in arrays]
+        outs.append(count_tail(*t, 1 << 20, 30, thr, chunk_reads=200,
+                               in_dedup=True,
+                               values=torch.from_numpy(vals).to(dev)))
+    assert outs[0][0][0] > 0
+    np.testing.assert_array_equal(outs[0][0], outs[1][0])
+    np.testing.assert_array_equal(outs[0][1], outs[1][1])
+
+
+@pytest.mark.parametrize("pass2", ["pair", "gemm"])
+def test_screened_tail_in_dedup_cuda_matches_cpu(cuda, pass2):
+    """The screened tail's paired mode (both planes uniqued, then pass 1
+    and pass 2) on the card equals its CPU run."""
+    rng = np.random.default_rng(8)
+    nb, s_block, W, B, K, nu, thr = 6, 300, 4, 512, 300, 4099, 120
+    u = rng.integers(0, 2**32, (nu + 1, 1), dtype=np.uint32)
+    u[-1] = 0
+    vals, (loc, loc_u), nk = _paired_planes(rng, B, K, [s_block, nu], thr)
+    arrays = (
+        _blocks(rng, nb, s_block, W), u.view(np.int32), loc, loc_u, nk,
+        rng.integers(120, 160, B).astype(np.int32),
+        np.minimum(np.arange(K + 1, dtype=np.int32) // 8 + 10, K),
+        rng.integers(2, 6, (nb, K + 1)).astype(np.int32),
+        np.full((nb, 32 * W), 1, dtype=np.int32),
+    )
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+             for a in arrays]
+        bits01 = gemm_slabs(t[0], nb, s_block, 320) if pass2 == "gemm" else None
+        outs.append(screened_tail(*t, 1 << 16, 30, thr, pass2, bits01,
+                                  chunk_pairs=200, in_dedup=True,
+                                  values=torch.from_numpy(vals).to(dev)))
     assert outs[0][0][0] > 0
     np.testing.assert_array_equal(outs[0][0], outs[1][0])
     np.testing.assert_array_equal(outs[0][1], outs[1][1])

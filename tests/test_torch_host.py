@@ -84,8 +84,9 @@ def write_genomes(gdir, genomes):
 
 def test_command_line_loads_no_jax_and_nothing_of_kmcp_tpu(tmp_path):
     """compute -> index (one block, and screened blocks) -> search --device
-    cpu through ``python -m kmcp_tpu_torch``, each in a process that fails
-    if a jax or kmcp_tpu module is in sys.modules at exit."""
+    cpu, of single reads and of read pairs (-1/-2), through ``python -m
+    kmcp_tpu_torch``, each in a process that fails if a jax or kmcp_tpu
+    module is in sys.modules at exit."""
     rng = np.random.default_rng(4)
     genomes = random_genomes(rng, 3, 20000)
     gdir = write_genomes(tmp_path / "genomes", genomes)
@@ -120,11 +121,28 @@ def test_command_line_loads_no_jax_and_nothing_of_kmcp_tpu(tmp_path):
     run("index", "-I", ks, "-O", one, "-f", "0.3", "--tpu-native")
     run("index", "-I", ks, "-O", screened, "-f", "0.3", "--tpu-native",
         "--native-block-targets", "4", "--block-screen", "--uniform-sigs")
+    r1, r2 = tmp_path / "r1.fq", tmp_path / "r2.fq"
+    rc = bytes.maketrans(b"ACGT", b"TGCA")
+    with open(r1, "w") as f1, open(r2, "w") as f2:
+        for i in range(40):
+            g = genomes[i % len(genomes)]
+            p = int(rng.integers(0, len(g) - 400))
+            s2 = g[p + 200 : p + 350].translate(rc)[::-1].decode()
+            f1.write(f"@p{i}/1\n{g[p : p + 150].decode()}\n+\n{'I' * 150}\n")
+            f2.write(f"@p{i}/2\n{s2}\n+\n{'I' * 150}\n")
     for db in (one, screened):
         out = tmp_path / f"{db.name}.tsv"
         run("search", "--device", "cpu", "-d", db, fq, "-o", out)
         text = out.read_text()
         assert text.startswith("#query") and text.count("\n") > 40
+        # paired reads: -1/-2
+        out = tmp_path / f"{db.name}.paired.tsv"
+        run("search", "--device", "cpu", "-d", db, "-1", r1, "-2", r2,
+            "-o", out)
+        rows = [ln.split("\t") for ln in out.read_text().splitlines()
+                if not ln.startswith("#")]
+        assert len({r[0] for r in rows}) == 40
+        assert all(r[1] == "300" for r in rows)  # qLen = len1 + len2
 
 
 def test_not_ported_commands_exit_naming_roadmap_item():

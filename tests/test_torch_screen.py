@@ -13,7 +13,11 @@ tests/test_pallas_pair.py (3 blocks of 40 rows x 4,096 targets, W_b = 128):
 - K6''s route (fused floors, each pair's row in place) vs K5''s, pair by
   pair, and its tail vs the JAX GEMM route at chunks that cut block tiles;
 - pair-chunked vs unchunked pass 2;
-- K1''s screen plane vs ``make_pallas_hash_loc(..., screen_sigs=N)``.
+- K1''s screen plane vs ``make_pallas_hash_loc(..., screen_sigs=N)``;
+- the paired mode (``in_dedup``: over-threshold reads uniqued in both
+  planes before either pass) vs ``_make_screened_tail(in_dedup=True)`` on
+  its XLA pass 2, and vs its pair kernel on the planes
+  ``_dedup_value_planes`` uniques.
 Every value is an integer: compared exactly."""
 
 import functools
@@ -28,6 +32,7 @@ from kmcp_tpu.search.device import (
     _gemm_geometry,
     _make_screened_tail,
 )
+from kmcp_tpu.search.device_step import _dedup_value_planes
 from kmcp_tpu.search.pallas_count import pack_gemm_blocks, pack_pair_blocks
 from kmcp_tpu.search.pallas_hash import make_pallas_hash_loc
 from kmcp_tpu_torch.search.device_step import target_floor
@@ -48,7 +53,8 @@ from kmcp_tpu_torch.search.screen import (
     screened_tail,
 )
 
-from .test_pallas_pair import B, NB, S_BLOCK, T_BLOCK, _synthetic
+from .test_pallas_pair import B, K, NB, NU, S_BLOCK, T_BLOCK, _synthetic
+from .test_torch_paired import joined_values, value_pool
 
 torch.set_num_threads(1)
 
@@ -292,3 +298,54 @@ def test_screen_plane_matches_pallas(N):
     np.testing.assert_array_equal(loc[:, :, 0].numpy(), np.asarray(loc_t).T)
     np.testing.assert_array_equal(nk_p.numpy(), np.asarray(nk)[0])
     assert (loc_u.numpy() == N).any() and (loc_u.numpy() < N).any()
+
+
+THR_P = 6  # a dedup threshold that the 12-window reads cross
+
+
+@pytest.mark.parametrize("route", ["xla", "pair"])
+def test_screened_tail_in_dedup_matches_jax(route):
+    """The paired mode on seed 5's blocks, union table and floors, with
+    value planes from a pool of 7 values (half the reads at or under the
+    threshold keep their duplicates): the port's tail with in_dedup, pass2
+    "pair" and "gemm", equals _make_screened_tail(in_dedup=True) on its XLA
+    pass 2 byte for byte; and equals the pair-kernel tail that
+    test_pair_tail_matches_jax compiles, fed the planes and unique counts
+    _dedup_value_planes gives (what in_dedup runs both passes on: no
+    unique count reaches DEDUP), which equals the XLA pass 2 with
+    in_dedup."""
+    rng = np.random.default_rng(5)
+    bits, args = _synthetic(5)
+    u = np.asarray(args[0])
+    lens, cmin, theta, tmin, spos = (np.asarray(a) for a in args[4:])
+    vhi, vlo, (loc_t, locu_t), nk = value_pool(rng, K, B, 7, (S_BLOCK, NU),
+                                               THR_P)
+    j = jnp.asarray
+    tail_args = (j(cmin), j(theta), j(tmin), j(spos))
+    want = _make_screened_tail(
+        BIG, B * NB, MIN_LEN, THR_P, NB, T_BLOCK, S_BLOCK, 1, in_dedup=True)(
+        j(bits), j(u), j(loc_t), j(locu_t), j(nk[None]), j(lens),
+        *tail_args, (j(vhi), j(vlo)))
+    want = [np.asarray(a) for a in want]
+    if route == "pair":
+        (dl, du), dnk = _dedup_value_planes(
+            j(vhi), j(vlo), [j(loc_t), j(locu_t)], j(nk), THR_P,
+            (S_BLOCK, NU))
+        tail = _make_screened_tail(BIG, B * NB, MIN_LEN, DEDUP, NB, T_BLOCK,
+                                   S_BLOCK, 1, pair_pc=(K, True))
+        got_j = tail(pack_pair_blocks(j(bits), NB, S_BLOCK), j(u), dl, du,
+                     dnk[None], j(lens), *tail_args)
+        for a, b in zip(got_j, want):
+            np.testing.assert_array_equal(np.asarray(a), b)
+    assert 0 < want[0][0] <= BIG
+    x = port_inputs(5)
+    as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    for pass2 in ("pair", "gemm"):
+        meta, aux = screened_tail(
+            x["bits_ext"], x["u_ext"], as_t(loc_t.T), as_t(locu_t.T),
+            as_t(nk), x["lens"], x["cmin"], x["theta"], x["thr"], BIG,
+            MIN_LEN, THR_P, pass2, x["bits01"], in_dedup=True,
+            values=joined_values(vhi, vlo))
+        np.testing.assert_array_equal(meta, want[0], err_msg=pass2)
+        np.testing.assert_array_equal(aux, want[1], err_msg=pass2)
+    assert (aux[BIG:] < nk).any() and (nk > THR_P).any()

@@ -179,8 +179,11 @@ def test_unsupported_searches_raise(tmp_path, monkeypatch):
     fa = tmp_path / "q.fa"
     fa.write_text(f">q\n{genomes[0][:300].decode()}\n")
     q = [str(fa)]
-    with pytest.raises(NotImplementedError, match="A6"):
-        run_search(db, read1=q[0], read2=q[0], device="cpu", verbose=False)
+    # paired reads stream (A6), but not with --try-se (A8), nor on a
+    # sketch DB (A7)
+    with pytest.raises(NotImplementedError, match="A8"):
+        run_search(db, read1=q[0], read2=q[0], device="cpu", verbose=False,
+                   opt=port_engine.SearchOptions(try_se=True))
     with pytest.raises(NotImplementedError, match="A8"):
         run_search(db, q, whole_file=True, device="cpu", verbose=False)
     # a multi-block DB without union screens (no --block-screen)
@@ -197,6 +200,10 @@ def test_unsupported_searches_raise(tmp_path, monkeypatch):
     assert unsupported(eng) is None
     eng.dbs[0].is_sketch = True
     assert "A7" in unsupported(eng)
+    assert "A7" in unsupported(eng, paired=True)
+    with pytest.raises(NotImplementedError, match="A7"):
+        TorchStreamSearcher(eng, "cpu").run(iter([]), io.StringIO(),
+                                            paired=True)
     eng.dbs[0].is_sketch = False
     eng.dbs[0].info = dataclasses.replace(eng.dbs[0].info, canonical=False)
     with pytest.raises(NotImplementedError, match="canonical"):
