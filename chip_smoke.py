@@ -3,7 +3,8 @@
 
 Drives the port's main paths, single-end streaming search over a
 single-block DB and over a multi-block ``--block-screen --uniform-sigs`` DB
-(the two-pass screened search), through the entry points a user calls
+(the two-pass screened search), read pairs, sketch DBs and the searches
+the object engine runs, through the entry points a user calls
 (``python -m kmcp_tpu_torch compute / index`` to build the DBs, then
 ``kmcp_tpu_torch.commands.search.run_search``).  Every input is made here
 from fixed seeds; nothing outside the checkout is read, and nothing of JAX
@@ -63,7 +64,30 @@ raises, exit non-zero):
      pair best-hits its genome, K1' and K2' launch in both runs, K5' in the
      screened run only, no pair takes the object engine; then a stage-timed
      rerun of each gives the steady pairs/s, the dedup as a stage of its
-     own.
+     own;
+  8. device sketch selection: a minimizer (``compute -W 5``) and a
+     closed-syncmer (``-S 11``) DB of 256 of phase 4's genome files (its 40
+     source genomes among them) x 64 chunks, k = 21, one block of 16,384
+     targets (``-n 1 -f 0.3 --tpu-native``); phase 4's reads stream
+     through K1' at k with the value plane (and at k = s for syncmers), the
+     window selection and the dense tail; each TSV byte-identical to the
+     run with the kernels bound to their plain versions on the card, K1'
+     launched once a batch (twice for syncmers; 4 batches, and once more
+     for each batch the 4x candidate-budget retry re-runs), K2' launched,
+     no read through the object engine; the share of source reads that
+     best-hit their genome is printed, not gated; then a stage-timed
+     rerun;
+  9. the object engine on the card (its counter launches K2'): ``-g -t
+     0.15 -s jacc`` on a DB of 256 of phase 4's genomes, one target each
+     (``-n 3 -f 0.01``), six queries of one genome (each best-hits itself
+     with jacc 1.0000) and two of five genomes (past 262,144 k-mers);
+     4,096 of phase 4's reads with ``-s jacc`` on phase 4's DB, the same
+     reads on phase 4's and phase 6's DBs at once (a directory of links to
+     both), and 4,096 of phase 7's pairs with ``--try-se`` on phase 4's
+     DB; each TSV byte-identical to the run with the kernels bound to their
+     plain versions on the card, the route "engine", K2' launched; then a
+     stage-timed rerun of each (host hashing, locations, K2', the D2H of
+     the counts, host extraction, writer).
 Every main-path run sets all four kernels' launch counts to 0 just before
 it and reads them just after.
 Then one JSON line of kernel results, the card's name and power limit, and
@@ -95,6 +119,10 @@ NARROW_GENOMES, NARROW_CHUNKS = 15, 10  # 150 targets of 680 kb
 SCREEN_SIGS = 1 << 25  # a union screen's rows in phase 3 (phase 6's DB has as many)
 PASS2_CASES = ((32, 20_480), (128, 36_864))  # (blocks, pairs) in phase 3
 BLOCK_TARGETS = 4096  # targets per block of phase 6's screened DB
+SKETCH_GENOMES = 256  # phase 8: 16,384 targets, K2''s wide-row variant
+GENOME_DB_GENOMES = 256  # phase 9's -g DB, one target a genome
+ENGINE_READS = 4096  # phase 9's reads and pairs through the object engine
+GENOME_KMERS = 262_144  # the JAX package's genome-scale query threshold
 
 
 # One NVIDIA H100 SXM (data sheet, dense, at its 700 W limit): HBM rate and
@@ -510,10 +538,12 @@ def build_db(name: str, n_genomes: int, chunks: int, chunk_bp: int,
     return db, seqs
 
 
-def write_reads(path: str, genomes: list[bytes], seed: int) -> int:
+def write_reads(path: str, genomes: list[bytes], seed: int
+                ) -> tuple[int, np.ndarray]:
     """N_READS 150 bp reads as FASTQ: 90% from 40 source genomes, named
     r<i>.<genome>, and 10% random junk, named j<i>
-    (tools/bench_large_t.py:104-128).  Returns the number of source reads."""
+    (tools/bench_large_t.py:104-128).  Returns the number of source reads
+    and the source genomes' indices."""
     rng = np.random.default_rng(seed)
     bases = np.frombuffer(b"ACGT", dtype=np.uint8)
     pool = rng.choice(len(genomes), size=min(40, len(genomes)),
@@ -530,7 +560,7 @@ def write_reads(path: str, genomes: list[bytes], seed: int) -> int:
         for i in range(n_junk):
             seq = rng.choice(bases, size=READ_LEN).tobytes().decode()
             f.write(f"@j{i}\n{seq}\n+\n{qual}\n")
-    return N_READS - n_junk
+    return N_READS - n_junk, pool
 
 
 def write_pairs(path1: str, path2: str, genomes: list[bytes], seed: int,
@@ -573,18 +603,30 @@ def write_pairs(path1: str, path2: str, genomes: list[bytes], seed: int,
     return N_READS - n_junk
 
 
+def first_rows(path: str) -> dict:
+    """A TSV's first (best) row of each query, split into its columns."""
+    first = {}
+    with open(path) as f:
+        for line in f:
+            if not line.startswith("#"):
+                cols = line.rstrip("\n").split("\t")
+                first.setdefault(cols[0], cols)
+    return first
+
+
+def source_best_hits(path: str) -> tuple[dict, list]:
+    """(source read r<i>.<genome> -> its best hit's target, the reads whose
+    best hit is another genome)."""
+    src = {q: cols[5] for q, cols in first_rows(path).items()
+           if q.startswith("r")}
+    return src, [q for q, t in src.items() if q.split(".", 1)[1] != t]
+
+
 def check_best_hits(path: str, n_source: int) -> None:
     """Every source read r<i>.<genome> must have <genome> as its first (best)
     hit: its own chunk covers all its k-mers, and another genome's chunk
     would have to share all 130 of them by Bloom false positives."""
-    best = {}
-    with open(path) as f:
-        for line in f:
-            if not line.startswith("#"):
-                cols = line.split("\t", 6)
-                best.setdefault(cols[0], cols[5])
-    src = {q: t for q, t in best.items() if q.startswith("r")}
-    wrong = [q for q, t in src.items() if q.split(".", 1)[1] != t]
+    src, wrong = source_best_hits(path)
     if len(src) != n_source or wrong:
         raise AssertionError(
             f"{path}: {n_source - len(src)} source reads unmatched, "
@@ -632,10 +674,12 @@ def searched(db: str, out: str, **kwargs) -> dict:
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Bind the main paths' kernel calls (K1', K2' in the dense tail and in
-    screened pass 1, K5' and K6' in pass 2) to their plain PyTorch
-    versions, so the same paths run without the CUDA kernels."""
-    from kmcp_tpu_torch.search import device, device_step, screen
+    """Bind the main paths' kernel calls (K1' of every device search, the
+    sketch branch's included; K2' in the dense tail, in screened pass 1
+    and in the object engine's counter; K5' and K6' in pass 2) to their
+    plain PyTorch versions, so the same paths run without the CUDA
+    kernels."""
+    from kmcp_tpu_torch.search import device, device_step, kernel, screen
     from kmcp_tpu_torch.search.count import count_mask_plain
     from kmcp_tpu_torch.search.group_count import group_count_plain
     from kmcp_tpu_torch.search.hash_loc import hash_loc_plain
@@ -652,6 +696,7 @@ def plain_kernels():
 
     binds = [(device, "hash_loc", hash_loc_plain),
              (device_step, "count_mask", count), (screen, "count_mask", count),
+             (kernel, "count_mask", count),
              (screen, "pair_count", pair), (screen, "group_count", group)]
     saved = [(obj, name, getattr(obj, name)) for obj, name, _ in binds]
     for obj, name, fn in binds:
@@ -743,22 +788,29 @@ def stage_timers(torch, acc: dict):
     """Time a search's stages on a synchronised host clock, by wrapping
     the functions it calls: the DB set-up (host arrays, of which the union
     screens' packing, then the upload; the engine's open and check before
-    it, and the streamer set-up around it), the device hash, the paired
+    it, and the streamer set-up around it), the device hash, a sketch
+    DB's window selection, the paired
     mode's dedup, the dense tail and its K2' launches, or the screened
     pass 1, pass-2 kernels,
     whole pass-2 routes and packing with its D2H copy, and the TSV writer;
-    seconds accumulate in ``acc``."""
+    on the object engine's route its host hashing and uniquing, the
+    counter (location derivation and padding; the device part, its K2'
+    launches among it; the rest of the call, the D2H copy of the counts),
+    host extraction and the TSV writer.  Seconds accumulate in ``acc``."""
     from kmcp_tpu_torch.commands import search as command
-    from kmcp_tpu_torch.search import device, device_step, screen
+    from kmcp_tpu_torch.search import (device, device_step, engine, kernel,
+                                       screen)
     from kmcp_tpu_torch.search.stream import TorchStreamSearcher
 
+    counter = kernel.TorchBlockCounter
     targets = [(command, "SearchEngine", "engine_open"),
-               (command, "unsupported", "engine_check"),
+               (command, "usable", "engine_check"),
                (command, "TorchStreamSearcher", "streamer_setup"),
                (device, "numpy_state", "db_state"),
                (device, "build_packed_union", "db_state_union_pack"),
                (device.TorchDeviceDB, "_init", "db_upload"),
                (device, "hash_loc", "hash"),
+               (device, "sketch_transform", "sketch_select"),
                (device, "count_tail", "dense_tail"),
                (device_step, "count_mask", "dense_count_kernel"),
                (device_step, "dedup_planes", "dedup"),
@@ -769,7 +821,15 @@ def stage_timers(torch, acc: dict):
                (screen, "_pass2_pair", "pass2_route"),
                (screen, "_pass2_gemm", "pass2_route"),
                (screen, "pack_result_split", "pack_d2h"),
-               (TorchStreamSearcher, "_write_native", "writer")]
+               (TorchStreamSearcher, "_write_native", "writer"),
+               (engine, "hash_reads_batch", "engine_hash"),
+               (engine, "unique_sorted", "engine_unique"),
+               (counter, "__call__", "engine_counter"),
+               (counter, "rows", "engine_locations"),
+               (counter, "count_rows", "engine_count"),
+               (kernel, "count_mask", "engine_count_kernel"),
+               (engine.SearchEngine, "_extract_matches", "engine_extract"),
+               (command, "write_results", "engine_writer")]
     saved = [(obj, name, getattr(obj, name)) for obj, name, _ in targets]
 
     def timed(fn, key):
@@ -925,6 +985,237 @@ def phase_paired(torch, dev, label: str, db: str, r1: str, r2: str,
     return {"launches": la, "breakdown": acc}
 
 
+def link_genomes(gdir: str, src: str, indices) -> str:
+    """A directory of symlinks to the genome files ``indices`` of ``src``
+    (phase 4's genomes), the input of a ``compute -I``."""
+    shutil.rmtree(gdir, ignore_errors=True)
+    os.makedirs(gdir)
+    for g in sorted(int(i) for i in indices):
+        name = f"g{g:05d}.fa"
+        os.symlink(os.path.join(src, name), os.path.join(gdir, name))
+    return gdir
+
+
+def genome_subset(pool, n: int) -> list[int]:
+    """n of phase 4's genome indices: the reads' source genomes ``pool``,
+    then the lowest others."""
+    others = [g for g in range(WIDE_GENOMES) if g not in set(pool.tolist())]
+    return sorted(list(pool) + others[: n - len(pool)])
+
+
+def check_plain(tag: str, run: dict, ref: dict, route: str,
+                want: tuple, dev) -> None:
+    """A run on the card against its plain_kernels() run: TSV and totals
+    equal, the route taken, the kernels of ``want`` launched (on a CUDA
+    device) and no other, none in the plain run."""
+    if any(ref["launches"].values()):
+        raise AssertionError(f"{tag}: the plain run launched a kernel")
+    if run["tsv"] != ref["tsv"]:
+        raise AssertionError(f"{tag}: TSV differs from the plain run")
+    if run["totals"] != ref["totals"]:
+        raise AssertionError(f"{tag}: totals {run['totals']} vs "
+                             f"{ref['totals']}")
+    if run["stats"]["route"] != route:
+        raise AssertionError(f"{tag}: route {run['stats']['route']}")
+    la = run["launches"]
+    if ((dev.type == "cuda" and min(la[n] for n in want) == 0)
+            or any(la[n] for n in la if n not in want)):
+        raise AssertionError(f"{tag}: launches {la}")
+
+
+def phase_sketch(torch, dev, genome_src: str, pool, reads: str,
+                 n_source: int) -> dict:
+    """Phase 8: a minimizer (compute -W 5) and a closed-syncmer (-S 11) DB
+    of SKETCH_GENOMES of phase 4's genomes (its 40 source genomes among
+    them) x 64 chunks, k = 21, one block (-n 1 -f 0.3 --tpu-native);
+    phase 4's reads streamed on the card (K1' at k with values, at k = s
+    for syncmers, the window selection, the dense tail) against the same
+    path with the kernels bound to their plain versions on the card; then
+    a stage-timed rerun."""
+    from kmcp_tpu_torch.cli import main as cli
+
+    gdir = link_genomes(os.path.join(SCRATCH, "sketch", "genomes"),
+                        genome_src, genome_subset(pool, SKETCH_GENOMES))
+    out = {"launches": {}, "breakdown": {}}
+    for kind, flag in (("minimizer", ["-W", "5"]), ("syncmer", ["-S", "11"])):
+        t0 = time.time()
+        ks = os.path.join(SCRATCH, "sketch", kind, "ks")
+        db = os.path.join(SCRATCH, "sketch", kind, "db")
+        if cli(["-q", "compute", "-I", gdir, "-O", ks, "-k", str(K), *flag,
+                "-n", str(WIDE_CHUNKS), "-l", str(READ_LEN), "--force"]):
+            raise RuntimeError(f"compute of the {kind} DB failed")
+        if cli(["-q", "index", "-I", ks, "-O", db, "-n", "1", "-f", "0.3",
+                "--tpu-native", "--native-block-targets",
+                str(SKETCH_GENOMES * WIDE_CHUNKS), "--force"]):
+            raise RuntimeError(f"index of the {kind} DB failed")
+        build_s = time.time() - t0
+
+        def search(tag: str) -> dict:
+            return searched(db, os.path.join(SCRATCH, f"sketch.{kind}.{tag}"
+                                             ".tsv"), files=[reads],
+                            device=dev)
+
+        run = search("cuda")
+        with plain_kernels():
+            ref = search("plain")
+        tag = f"phase 8 {kind}"
+        check_plain(tag, run, ref, "stream", ("hash_loc", "count_mask"), dev)
+        st, la = run["stats"], run["launches"]
+        # K1' once a batch of 16,384 reads (twice for syncmers), and again
+        # for every batch the 4x candidate-budget retry re-runs
+        batches = -(-N_READS // 16_384) + st["retries"]
+        n_hash = (2 if kind == "syncmer" else 1) * batches
+        if (dev.type == "cuda" and la["hash_loc"] != n_hash) or (
+                st["slow_rows"] or st["n_blocks"] != 1):
+            raise AssertionError(f"{tag}: launches {la}, stats {st}")
+        src, wrong = source_best_hits(run["out"])
+        share = (len(src) - len(wrong)) / n_source
+        log(f"{tag}: DB {SKETCH_GENOMES * WIDE_CHUNKS} targets, "
+            f"{st['rows']} Bloom rows x {st['words']} words, built in "
+            f"{build_s:.1f} s; TSV byte-identical to the plain run "
+            f"({len(run['tsv'])} bytes, {run['totals'][1]}/"
+            f"{run['totals'][0]} reads matched); {share:.4f} of the "
+            f"{n_source} source reads best-hit their genome (not gated); "
+            f"{N_READS / run['wall']:.1f} reads/s (run_search wall incl. DB "
+            f"load), plain run {N_READS / ref['wall']:.1f} reads/s; 4x "
+            f"retries {st['retries']}, slow rows 0, launches {la}")
+        acc: dict = {}
+        with stage_timers(torch, acc):
+            timed = search("cuda.timed")
+        if timed["tsv"] != ref["tsv"]:
+            raise AssertionError(f"{tag} timed: TSV differs")
+        steady = timed["wall"] - sum(acc.get(k, 0.0) for k in (
+            "engine_open", "engine_check", "streamer_setup"))
+        log(f"{tag} stages (synchronised host clock, s): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in acc.items())
+            + f"; run_search wall {timed['wall']:.3f}; steady "
+            f"{N_READS / steady:.1f} reads/s (without engine open and "
+            "streamer set-up)")
+        out["launches"][kind] = la
+        out["breakdown"][kind] = acc
+    return out
+
+
+def fastq_every(src: str, dst: str, every: int) -> None:
+    """Every ``every``-th record of a FASTQ file, the first one included."""
+    with open(src) as f, open(dst, "w") as g:
+        for i, line in enumerate(f):
+            if (i // 4) % every == 0:
+                g.write(line)
+
+
+def phase_engine(torch, dev, genome_src: str, pool, wide_db: str,
+                 screened_db: str, reads: str, pair_files) -> dict:
+    """Phase 9: searches the streamer turns down, on the object engine
+    (its blocks count with K2' on the card), each against the same search
+    with the kernels bound to their plain versions on the card:
+    - ``-g -t 0.15 -s jacc`` on a DB of GENOME_DB_GENOMES of phase 4's
+      genomes, one target each (no -n), indexed -n 3 -f 0.01: six queries
+      of one genome file each (each must best-hit its genome with jacc
+      1.0000) and two of five genomes (~320k k-mers, past the JAX
+      package's 262,144 genome threshold);
+    - ENGINE_READS of phase 4's reads with ``-s jacc`` on phase 4's wide
+      DB; the same reads on the wide and screened DBs at once (a
+      directory of links to both: the multi-DB intersection);
+    - ENGINE_READS of phase 7's pairs with ``--try-se`` on the wide DB;
+    then a stage-timed rerun of each."""
+    from kmcp_tpu_torch.cli import main as cli
+    from kmcp_tpu_torch.search.engine import SearchOptions
+
+    root = os.path.join(SCRATCH, "engine")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t0 = time.time()
+    chosen = genome_subset(pool, GENOME_DB_GENOMES)
+    gdir = link_genomes(os.path.join(root, "genomes"), genome_src, chosen)
+    gks, gdb = os.path.join(root, "ks"), os.path.join(root, "db")
+    if cli(["-q", "compute", "-I", gdir, "-O", gks, "-k", str(K),
+            "--force"]):
+        raise RuntimeError("compute of the -g DB failed")
+    if cli(["-q", "index", "-I", gks, "-O", gdb, "-n", "3", "-f", "0.01",
+            "--force"]):
+        raise RuntimeError("index of the -g DB failed")
+    build_s = time.time() - t0
+    singles = [os.path.join(gdir, f"g{g:05d}.fa") for g in chosen[:6]]
+    multis = []
+    for j in range(2):
+        path = os.path.join(root, f"five{j}.fa")
+        with open(path, "w") as f:
+            for g in chosen[6 + 5 * j : 11 + 5 * j]:
+                with open(os.path.join(gdir, f"g{g:05d}.fa")) as src:
+                    f.write(src.read())
+        multis.append(path)
+    few = os.path.join(root, "reads.fq")
+    fastq_every(reads, few, N_READS // ENGINE_READS)
+    p1, p2 = (os.path.join(root, "r1.fq"), os.path.join(root, "r2.fq"))
+    fastq_every(pair_files[0], p1, N_READS // ENGINE_READS)
+    fastq_every(pair_files[1], p2, N_READS // ENGINE_READS)
+    both = os.path.join(root, "both")
+    os.makedirs(both)
+    os.symlink(wide_db, os.path.join(both, "wide"))
+    os.symlink(screened_db, os.path.join(both, "screened"))
+    log(f"phase 9 -g DB: {GENOME_DB_GENOMES} targets built in "
+        f"{build_s:.1f} s")
+
+    cases = {
+        "-g": dict(db=gdb, files=singles + multis, whole_file=True,
+                   opt=SearchOptions(min_query_cov=0.15, sort_by="jacc")),
+        "jacc": dict(db=wide_db, files=[few],
+                     opt=SearchOptions(sort_by="jacc")),
+        "multi-db": dict(db=both, files=[few], opt=SearchOptions()),
+        "try-se": dict(db=wide_db, read1=p1, read2=p2,
+                       opt=SearchOptions(try_se=True)),
+    }
+    out = {"launches": {}, "breakdown": {}}
+    for name, kw in cases.items():
+        kw = dict(kw)
+        db = kw.pop("db")
+
+        def search(tag: str) -> dict:
+            return searched(db, os.path.join(root, f"{name}.{tag}.tsv"),
+                            device=dev, **kw)
+
+        run = search("cuda")
+        with plain_kernels():
+            ref = search("plain")
+        tag = f"phase 9 {name}"
+        check_plain(tag, run, ref, "engine", ("count_mask",), dev)
+        if name == "-g":
+            first = first_rows(run["out"])
+            for path in singles:
+                g = os.path.basename(path)[:-3]
+                row = first.get(g)
+                if row is None or row[5] != g or row[13] != "1.0000":
+                    raise AssertionError(f"{tag}: query {g} first row {row}")
+            nk = [int(first[f"g{chosen[6 + 5 * j]:05d}"][2])
+                  for j in range(2)]
+            if min(nk) < GENOME_KMERS:
+                raise AssertionError(f"{tag}: five-genome queries of {nk} "
+                                     "k-mers")
+        la = run["launches"]
+        log(f"{tag}: TSV byte-identical to the plain run ({len(run['tsv'])}"
+            f" bytes, {run['totals'][1]}/{run['totals'][0]} queries "
+            "matched" + ("; each single-genome query best-hits its genome "
+                         f"with jacc 1.0000; five-genome queries of {nk} "
+                         "k-mers" if name == "-g" else "")
+            + f"); wall {run['wall']:.3f} s, plain run {ref['wall']:.3f} s; "
+            f"launches {la}")
+        acc: dict = {}
+        with stage_timers(torch, acc):
+            timed = search("cuda.timed")
+        if timed["tsv"] != ref["tsv"]:
+            raise AssertionError(f"{tag} timed: TSV differs")
+        acc["engine_d2h"] = (acc.get("engine_counter", 0.0)
+                             - acc.get("engine_locations", 0.0)
+                             - acc.get("engine_count", 0.0))
+        log(f"{tag} stages (synchronised host clock, s): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in acc.items())
+            + f"; run_search wall {timed['wall']:.3f}")
+        out["launches"][name] = la
+        out["breakdown"][name] = acc
+    return out
+
+
 def main() -> int:
     t_start = time.time()
     import torch
@@ -960,7 +1251,7 @@ def main() -> int:
     wide_db, genomes = build_db("wide", WIDE_GENOMES, WIDE_CHUNKS, 1000, 1, 42)
     build_s = time.time() - t0
     wide_reads = os.path.join(SCRATCH, "wide.reads.fq")
-    wide_source = write_reads(wide_reads, genomes, 7)
+    wide_source, pool = write_reads(wide_reads, genomes, 7)
     pair_files = (os.path.join(SCRATCH, "pairs.r1.fq"),
                   os.path.join(SCRATCH, "pairs.r2.fq"))
     pair_source = write_pairs(*pair_files, genomes, 7, WIDE_CHUNKS)
@@ -975,7 +1266,7 @@ def main() -> int:
     narrow_db, genomes = build_db("narrow", NARROW_GENOMES, NARROW_CHUNKS,
                                   680_000, 3, 43)
     reads = os.path.join(SCRATCH, "narrow.reads.fq")
-    n_source = write_reads(reads, genomes, 8)
+    n_source, _ = write_reads(reads, genomes, 8)
     del genomes
     log(f"phase 5 DB: {NARROW_GENOMES * NARROW_CHUNKS} targets, 3 hashes, "
         f"built in {time.time() - t0:.1f} s")
@@ -996,6 +1287,16 @@ def main() -> int:
                                  *pair_files, pair_source, screened=True),
     }
     walls["7 paired"] = time.time() - t0
+
+    genome_src = os.path.join(SCRATCH, "wide", "genomes")
+    t0 = time.time()
+    sketch = phase_sketch(torch, dev, genome_src, pool, wide_reads,
+                          wide_source)
+    walls["8 sketch"] = time.time() - t0
+    t0 = time.time()
+    engine = phase_engine(torch, dev, genome_src, pool, wide_db,
+                          screened["db"], wide_reads, pair_files)
+    walls["9 engine"] = time.time() - t0
     for name, w in walls.items():
         log(f"phase {name}: {w:.1f} s")
 
@@ -1017,7 +1318,11 @@ def main() -> int:
                    **{f"phase 6 {p}": n[name]
                       for p, n in screened["launches"].items()},
                    **{f"phase 7 {p}": r["launches"][name]
-                      for p, r in paired.items()}}
+                      for p, r in paired.items()},
+                   **{f"phase 8 {p}": n[name]
+                      for p, n in sketch["launches"].items()},
+                   **{f"phase 9 {p}": n[name]
+                      for p, n in engine["launches"].items()}}
 
         def timed(r) -> dict:
             # only K6' has a one-call library counterpart; K1''s ms is the

@@ -126,7 +126,8 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("-w", "--load-whole-db", action="store_true",
                    help="read index fully into RAM instead of mmap")
     s.add_argument("--low-mem", action="store_true",
-                   help="row-seek mode (not ported: refused)")
+                   help="row-seek mode (kmcp_tpu --backend host): ignored "
+                   "on a torch device, with a warning")
     s.add_argument("--backend", default="numpy",
                    choices=["numpy", "jax", "host"],
                    help="kmcp_tpu's engine choice; the port searches on "
@@ -279,6 +280,8 @@ def _dispatch(args) -> int:
         out_file=args.out_file,
         opt=opt,
         whole_file=args.query_whole_file,
+        use_filename=args.use_filename,
+        query_id=args.query_id,
         no_header_row=args.no_header_row,
         device=args.device,
         verbose=not args.quiet,

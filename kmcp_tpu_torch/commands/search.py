@@ -1,11 +1,13 @@
-"""``search`` on a torch device: single-end reads or read pairs streamed
-against a one-block DB or a multi-block ``--block-screen --uniform-sigs``
-DB.
+"""``search`` on a torch device: reads, read pairs or whole files (``-g``)
+against one or more DBs.
 
-Port of kmcp_tpu/commands/search.py:74 ``run_search`` for the streaming
-path, and of its ``iter_queries`` (:20) for reads and pairs.  Searches the
-slice does not cover raise ``NotImplementedError`` naming the ROADMAP item
-that will add them; nothing falls back to another engine.
+Port of kmcp_tpu/commands/search.py (``iter_queries`` :20, ``run_search``
+:74).  A search the streamer takes (search/stream.py ``usable``: single-end
+reads or pairs against one DB, as the JAX streamer decides) streams on the
+device; every other one (``-g``, several DBs, ``--low-mem``, other sort
+orders, paired ``--try-se``, paired or multi-block sketch DBs, multi-block
+DBs without union screens, non-canonical DBs) runs the object engine's
+batch loop (:180-208), whose blocks count on the same device.
 """
 
 from __future__ import annotations
@@ -14,22 +16,36 @@ import dataclasses
 import os
 import sys
 import time
+from itertools import islice
 
 import torch
 
 from ..index.format import find_db_dirs
 from ..search.engine import SearchEngine, SearchOptions
-from ..search.stream import TorchStreamSearcher, unsupported
-from ..search.tsv import HEADER, write_stats
+from ..search.stream import TorchStreamSearcher, usable
+from ..search.tsv import HEADER, write_results, write_stats
 from ..seqio.fastx import read_fastx, xopen
 
 
+def _file_query_id(path: str) -> str:
+    """``-G``: the file's base name without .gz and its last extension."""
+    rid = os.path.basename(path)
+    if rid.endswith(".gz"):
+        rid = rid[:-3]
+    root = rid.rsplit(".", 1)
+    return root[0] if len(root) == 2 else rid
+
+
 def iter_queries(files: list[str], read1: str | None = None,
-                 read2: str | None = None):
+                 read2: str | None = None, whole_file: bool = False,
+                 use_filename: bool = False, query_id: str = "",
+                 k_max: int = 21):
     """Yield (id, seq1, seq2) pairs from ``read1`` and ``read2`` zipped
-    (``files`` are then ignored, as in kmcp_tpu/commands/search.py:30-45),
-    else (id, seq, None) single-end queries from ``read1`` or ``read2`` (one
-    of ``-1`` / ``-2`` alone), then ``files``, in order."""
+    (``files`` are then ignored), else (id, seq, None) queries from
+    ``read1`` or ``read2`` (one of ``-1`` / ``-2`` alone), then ``files``,
+    in order.  With ``whole_file`` (``-g``) each file is one query, its
+    records joined by ``k_max - 1`` N's, named by ``use_filename`` (the
+    file name), else ``query_id``, else its first record's id."""
     if read1 and read2:
         it1, it2 = read_fastx(read1), read_fastx(read2)
         for r1, r2 in zip(it1, it2):
@@ -44,8 +60,18 @@ def iter_queries(files: list[str], read1: str | None = None,
         return
     first = read1 or read2
     for file in ([first] if first else []) + list(files):
+        if not whole_file:
+            for rec in read_fastx(file):
+                yield rec.id, rec.seq, None
+            continue
+        seqs, rid = [], None
         for rec in read_fastx(file):
-            yield rec.id, rec.seq, None
+            if rid is None:
+                rid = (_file_query_id(file) if use_filename
+                       else query_id or rec.id)
+            seqs.append(rec.seq)
+        if seqs:
+            yield rid, (b"N" * (k_max - 1)).join(seqs), None
 
 
 def resolve_device(device) -> torch.device:
@@ -59,6 +85,20 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def run_engine(engine: SearchEngine, queries, out,
+               batch_queries: int = 8192) -> tuple[int, int]:
+    """The object engine's batch loop: search ``queries`` in batches of
+    ``batch_queries`` and write their rows; returns (total, matched)."""
+    total = matched = 0
+    it = iter(queries)
+    while batch := list(islice(it, batch_queries)):
+        t, m = write_results(out, engine.search_batch(batch, total),
+                             engine.opt.keep_unmatched)
+        total += t
+        matched += m
+    return total, matched
+
+
 def run_search(
     db_dir: str,
     files: list[str] | None = None,
@@ -67,16 +107,20 @@ def run_search(
     out_file: str = "-",
     opt: SearchOptions | None = None,
     whole_file: bool = False,
+    use_filename: bool = False,
+    query_id: str = "",
     no_header_row: bool = False,
     device="cuda",
     verbose: bool = True,
     stats: dict | None = None,
     pass2: str = "auto",
+    batch_queries: int = 8192,
 ) -> tuple[int, int]:
-    """Search reads, or the pairs of ``read1`` and ``read2``, against
-    ``db_dir`` on ``device``; returns (total, matched).  ``pass2`` picks
-    the screened pass-2 kernel of a multi-block DB ("pair", "gemm" or
-    "auto").  ``stats``, when given, receives the
+    """Search reads, the pairs of ``read1`` and ``read2``, or with
+    ``whole_file`` whole files, against ``db_dir`` on ``device``; returns
+    (total, matched).  ``pass2`` picks the screened pass-2 kernel of a
+    multi-block DB ("pair", "gemm" or "auto").  ``stats``, when given,
+    receives ``route``: "stream" or "engine"; for "stream" also the
     streamer's ``slow_rows`` and ``retries``, the DB's Bloom ``rows``, row
     ``words`` and ``n_blocks``, the pass-2 kernel that ran (``pass2``,
     None for one block), the union screen's ``union_rows`` and the active
@@ -84,19 +128,11 @@ def run_search(
     paired = bool(read1 and read2)
     # the query-FPR cache's size follows the mode (fpr.py)
     opt = dataclasses.replace(opt or SearchOptions(), paired_fpr_buf=paired)
-    if whole_file:
-        raise NotImplementedError(
-            "whole-file queries (-g) need the object-engine counter "
-            "(ROADMAP A8)"
-        )
     dev = resolve_device(device)
     db_dirs = find_db_dirs(db_dir)
     if not db_dirs:
         raise SystemExit(f"kmcp-tpu-torch search: invalid database: {db_dir}")
-    engine = SearchEngine(db_dirs, opt)
-    reason = unsupported(engine, paired)
-    if reason:
-        raise NotImplementedError(reason)
+    engine = SearchEngine(db_dirs, opt, dev)
     if opt.load_default_name_map and not opt.name_map:
         nm_path = os.path.join(db_dirs[0], "name_mapping.tsv")
         if os.path.isfile(nm_path):
@@ -105,24 +141,35 @@ def run_search(
                     line.rstrip("\n").split("\t", 1)
                     for line in f if line.strip()
                 )
+    route = ("stream" if not whole_file and usable(engine, paired)
+             else "engine")
     if verbose:
         print(
             "[search] main parameters:\n"
             f"  database: {db_dir}\n"
-            f"  device: {dev}, min-query-len: {opt.min_query_len}, "
+            f"  device: {dev}, route: {route}, paired: {paired}, "
+            f"whole-file: {whole_file}\n"
+            f"  min-query-len: {opt.min_query_len}, "
             f"min-kmers: {opt.min_kmers}, query-cov: {opt.min_query_cov}, "
-            f"target-cov: {opt.min_target_cov}, max-fpr: {opt.max_fpr}",
+            f"target-cov: {opt.min_target_cov}, max-fpr: {opt.max_fpr}\n"
+            f"  sort-by: {opt.sort_by}, "
+            f"keep-top-scores: {opt.keep_top_scores}, "
+            f"keep-unmatched: {opt.keep_unmatched}, try-se: {opt.try_se}",
             file=sys.stderr,
         )
     t0 = time.time()
-    streamer = TorchStreamSearcher(engine, dev, pass2)
+    streamer = (TorchStreamSearcher(engine, dev, pass2) if route == "stream"
+                else None)
+    queries = iter_queries(files or [], read1, read2, whole_file,
+                           use_filename, query_id, max(engine.dbs[0].info.ks))
     out = sys.stdout if out_file == "-" else xopen(out_file, "wt")
     try:
         if not no_header_row:
             out.write(HEADER)
-        total, matched = streamer.run(
-            iter_queries(files or [], read1, read2), out, paired=paired,
-        )
+        if streamer is not None:
+            total, matched = streamer.run(queries, out, paired=paired)
+        else:
+            total, matched = run_engine(engine, queries, out, batch_queries)
         write_stats(out, total, matched)
     finally:
         if out is not sys.stdout:
@@ -131,15 +178,19 @@ def run_search(
         el = time.time() - t0
         print(
             f"[search] processed {total} queries at "
-            f"{total / el if el > 0 else 0:.1f} queries/s on {dev}; "
+            f"{total / el if el > 0 else 0:.1f} queries/s on {dev} "
+            f"({route}); "
             f"{matched / total * 100 if total else 0.0:.4f}% matched",
             file=sys.stderr,
         )
     if stats is not None:
-        ddb = streamer.dev
-        stats.update(slow_rows=streamer.slow_rows, retries=streamer.retries,
-                     rows=ddb.total_rows, words=ddb.w, n_blocks=ddb.n_blocks,
-                     pass2=ddb.pass2,
-                     union_rows=ddb.screen["num_bits"] if ddb.screen else 0,
-                     pairs=ddb.tail_stats["pairs"] if ddb.screen else 0)
+        stats["route"] = route
+        if streamer is not None:
+            ddb = streamer.dev
+            stats.update(
+                slow_rows=streamer.slow_rows, retries=streamer.retries,
+                rows=ddb.total_rows, words=ddb.w, n_blocks=ddb.n_blocks,
+                pass2=ddb.pass2,
+                union_rows=ddb.screen["num_bits"] if ddb.screen else 0,
+                pairs=ddb.tail_stats["pairs"] if ddb.screen else 0)
     return total, matched

@@ -229,4 +229,28 @@ int64_t kt_sort_unique(uint64_t* a, int64_t n, int threads) {
   return m;
 }
 
+// Bloom-row locations: out[i*num_hashes + j] = loc_j(hashes[i]) mod num_sigs
+// (the multi-hash split of kt_build_word_column).
+void kt_locations(const uint64_t* hashes, int64_t n, int num_hashes,
+                  uint64_t num_sigs, int32_t* out, int threads) {
+  if (num_sigs == 0) return;
+#ifdef _OPENMP
+#pragma omp parallel for num_threads(threads > 0 ? threads : 1) \
+    schedule(static) if (threads > 1 && n > 1 << 15)
+#endif
+  for (int64_t i = 0; i < n; ++i) {
+    const uint64_t h = hashes[i];
+    if (num_hashes == 1) {
+      out[i] = (int32_t)(h % num_sigs);
+    } else {
+      const uint32_t a = (uint32_t)(h >> 32);
+      const uint32_t b = (uint32_t)h;
+      for (int j = 0; j < num_hashes; ++j) {
+        const uint32_t v = a + b * (uint32_t)j;
+        out[i * num_hashes + j] = (int32_t)((uint64_t)v % num_sigs);
+      }
+    }
+  }
+}
+
 }  // extern "C"

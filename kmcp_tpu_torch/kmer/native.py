@@ -1,6 +1,7 @@
 """ctypes bridge to the port's host C++ (csrc/host/*.cpp): the rolling
 ntHash scan, the Bloom word-column build, the union-screen fill, the
-parallel sort + unique, read-batch packing and the TSV row writer.
+parallel sort + unique, Bloom-row locations, read-batch packing and the
+TSV row writer.
 
 The port's copy of kmcp_tpu/kmer/native.py, cut to the entry points the
 port calls.  At first use ``g++`` builds the three sources into one shared
@@ -98,6 +99,11 @@ def get_lib() -> ctypes.CDLL:
             u64p, ctypes.c_int64, ctypes.c_uint64, u64p, ctypes.c_int,
         ]
         lib.kt_union_fill.restype = None
+        lib.kt_locations.argtypes = [
+            u64p, ctypes.c_int64, ctypes.c_int, ctypes.c_uint64, i32p,
+            ctypes.c_int,
+        ]
+        lib.kt_locations.restype = None
         lib.kt_write_rows.argtypes = [
             i32p, i32p, i32p, ctypes.c_int64,
             ctypes.c_int64, i64p, i64p, i32p, u8p,
@@ -274,6 +280,22 @@ def union_fill(hashes: np.ndarray, num_bits: int, threads: int = 0,
         _threads(threads),
     )
     return words
+
+
+def locations(hashes: np.ndarray, num_hashes: int, num_sigs: int,
+              threads: int = 0) -> np.ndarray:
+    """Bloom-row positions of a uint64 hash array of any shape -> int32
+    with a trailing ``num_hashes`` axis (kernel.derive_locations)."""
+    lib = get_lib()
+    flat = np.ascontiguousarray(hashes, dtype=np.uint64).ravel()
+    out = np.empty(flat.shape[0] * num_hashes, dtype=np.int32)
+    lib.kt_locations(
+        flat.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+        flat.shape[0], num_hashes, num_sigs,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        _threads(threads),
+    )
+    return out.reshape(*hashes.shape, num_hashes)
 
 
 def sort_unique(hashes: np.ndarray, threads: int = 0) -> np.ndarray:

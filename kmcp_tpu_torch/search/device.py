@@ -2,10 +2,12 @@
 
 Port of kmcp_tpu/search/device.py ``DeviceDB`` (``__init__`` :451-558,
 ``_load_screen`` :560, ``_theta_for`` :583, ``cmin_for`` :603,
-``search_reads_pallas`` :622, ``_search_reads_screened`` :846) for
-non-sketch DBs.  The blocks live on ``device`` row-stacked as an int32 view
-[nb*S+1, W] with the all-zero sentinel row last.  A one-block DB takes the
-dense count tail (device_step.py); a multi-block DB indexed with
+``search_reads_pallas`` :622, with its sketch branch :671-706,
+``_search_reads_screened`` :846).  The blocks live on ``device``
+row-stacked as an int32 view [nb*S+1, W] with the all-zero sentinel row
+last.  A one-block DB takes the dense count tail (device_step.py), after
+minimizer or closed-syncmer window selection (sketch_device.py) for a
+sketch DB; a multi-block DB indexed with
 ``--block-screen --uniform-sigs`` takes the two-pass screened tail
 (screen.py) over the packed union table.  The threshold tables are built on
 the host in float64 exactly as the JAX package builds them and copied to
@@ -23,8 +25,9 @@ import torch
 from ..index.format import read_block_union, read_block_union_header
 from .device_step import count_tail, target_floor
 from .group_count import gemm_slabs, s_pad_for
-from .hash_loc import hash_loc
+from .hash_loc import _U64, hash_loc
 from .screen import PASS2, pass2_kernel, screened_tail
+from .sketch_device import sketch_transform
 
 MULTI_BLOCK_NEEDS = (
     "multi-block DBs stream on the device only when indexed with "
@@ -152,6 +155,16 @@ def _stack_blocks(db):
     return stacked, names, indices, gsizes, sizes, row_off, w_max, row_offsets
 
 
+def sketch_kind(info):
+    """(kind, param) of a sketch DB's window selection: ("minimizer", w)
+    or ("syncmer", s); None for a plain k-mer DB."""
+    if info.minimizer:
+        return "minimizer", int(info.minimizer_w)
+    if info.syncmer:
+        return "syncmer", int(info.syncmer_s)
+    return None
+
+
 def numpy_state(db, opt) -> dict:
     """The arrays a TorchDeviceDB is built from, straight from the index
     (``_stack_blocks`` + ``build_tmin_table``, and for a multi-block DB the
@@ -187,6 +200,7 @@ def numpy_state(db, opt) -> dict:
         "num_hashes": db.info.num_hashes,
         "max_hash": (1 << 64) - 1 if db.max_hash is None else db.max_hash,
         "screen": screen,
+        "sketch": sketch_kind(db.info),
     }
 
 
@@ -205,7 +219,8 @@ class TorchDeviceDB:
         with its sentinel row, names, indices, gsizes, sizes, sizes_pos,
         tmin, ``cmin`` {n_max: table}, the scalars k, num_hashes, max_hash
         and, for a multi-block DB, ``screen`` {u_ext, num_bits, fprs,
-        s_block} (a JAX ``DeviceDB.screen``).  ``query_fpr`` builds cmin
+        s_block} (a JAX ``DeviceDB.screen``), and for a sketch DB
+        ``sketch`` (``sketch_kind``).  ``query_fpr`` builds cmin
         tables the state lacks."""
         self = cls.__new__(cls)
         self._init(state, opt, device, query_fpr, pass2)
@@ -238,6 +253,7 @@ class TorchDeviceDB:
         self.k = int(state["k"])
         self.num_hashes = int(state["num_hashes"])
         self.max_hash = int(state["max_hash"])
+        self.sketch = state.get("sketch")
         self.screen = None
         self.pass2 = None  # the pass-2 kernel of the screened tail
         if self.n_blocks > 1:
@@ -327,7 +343,9 @@ class TorchDeviceDB:
         (device.py:622-715, :846-935): K1' also emits the window values and
         the tail uniques each over-threshold read's windows in place of
         excluding the read; for paired rows ``lens`` is max(len1, len2),
-        which feeds only the min-length filter."""
+        which feeds only the min-length filter.  A sketch DB streams
+        single-end over one block only: anything else raises, for its
+        windows would be counted without selection."""
         opt = self.opt
         lmax = reads.shape[1]
         lens_t = torch.from_numpy(
@@ -335,6 +353,13 @@ class TorchDeviceDB:
         ).to(self.device)
         K = max(lmax - self.k + 1, 1)
         cmin = self.cmin_for(K)
+        if self.sketch is not None and (self.screen is not None
+                                        or dedup_values):
+            raise NotImplementedError(
+                "sketch DBs stream single-end reads over one block only "
+                "(window selection runs nowhere else): paired and "
+                "multi-block sketch searches take the object engine"
+            )
         if self.screen is not None:
             outs = hash_loc(
                 reads, self.k, self.s_block, self.max_hash, 1,
@@ -349,10 +374,29 @@ class TorchDeviceDB:
                 stats=self.tail_stats, in_dedup=dedup_values,
                 values=outs[3] if dedup_values else None,
             )
-        outs = hash_loc(reads, self.k, self.total_rows, self.max_hash,
-                        self.num_hashes, values=dedup_values)
+        if self.sketch is not None:
+            loc, nk = self._sketch_locations(reads, lens_t)
+        else:
+            outs = hash_loc(reads, self.k, self.total_rows, self.max_hash,
+                            self.num_hashes, values=dedup_values)
+            loc, nk = outs[0], outs[1]
         return count_tail(
-            self.bits_ext, outs[0], outs[1], lens_t, cmin, self.thr[0],
+            self.bits_ext, loc, nk, lens_t, cmin, self.thr[0],
             cand_budget, opt.min_query_len, opt.kmer_dedup_threshold,
             in_dedup=dedup_values, values=outs[2] if dedup_values else None,
         )
+
+    def _sketch_locations(self, reads: torch.Tensor, lens_t: torch.Tensor):
+        """A sketch DB's (loc, nk) in the JAX call order (device.py:671-706):
+        K1' at k unscaled with values, for a syncmer DB K1' again at k = s
+        (one row, values), the window selection, then the scale filter."""
+        kind, param = self.sketch
+        loc, _nk, vals = hash_loc(reads, self.k, self.total_rows, _U64,
+                                  self.num_hashes, values=True)
+        s_vals = None
+        if kind == "syncmer":
+            s_vals = hash_loc(reads, param, 1, _U64, 1, values=True)[2]
+        loc, nk, _vals = sketch_transform(kind, self.k, param,
+                                          self.total_rows, self.max_hash,
+                                          loc, vals, s_vals, lens_t)
+        return loc, nk

@@ -1,9 +1,15 @@
 """Batched object search engine: query reads vs bit-sliced Bloom DBs.
 
-The port's copy of kmcp_tpu/search/engine.py with the NumPy counter only
-(search/kernel.py; no JAX counter, no ``--low-mem`` row seek).  It opens
-DBs for the streamer and searches the reads the streamer hands over: those
-with more k-mers than the dedup threshold.
+The port's copy of kmcp_tpu/search/engine.py.  Given a torch device, a
+block counts with ``TorchBlockCounter`` (search/kernel.py: K2' on a CUDA
+device, its plain version on the CPU), the counterpart of the JAX
+package's ``backend="jax"``; without one, with the NumPy counter, the
+tests' oracle.  There is no ``--low-mem`` row seek: on a device the flag
+is ignored with a warning, as on the JAX backend.  It opens DBs, its own
+layout or the reference's ``.kmcp`` layout (index/uniki.py), for the
+streamer, searches the reads the streamer hands over (those with more
+k-mers than the dedup threshold), and runs every search the streamer does
+not take (search/stream.py ``usable``).
 
   reads -> k-mer hash batches (padded [B, Kmax]) -> per-block counts
         -> vectorized thresholding -> sparse match extraction -> rows
@@ -29,15 +35,17 @@ Semantics, as in the reference:
 from __future__ import annotations
 
 import os
+import sys
 from dataclasses import dataclass, field
 
 import numpy as np
 
 from ..index.format import read_block_bits, read_block_meta, read_db_info
+from ..index.uniki import DB_YML, load_ref_db
 from ..kmer.nthash import hash_reads_batch
 from ..kmer.sketches import generate_kmers, max_hash_for_scale, unique_sorted
 from .fpr import QueryFPRCache
-from .kernel import count_matches_numpy
+from .kernel import TorchBlockCounter, count_matches_numpy
 
 # Bytes of the NumPy counter's bit-unpacked intermediate per call: reads
 # over the dedup threshold on a wide DB count in chunks of reads.
@@ -62,7 +70,7 @@ class SearchOptions:
     batch_size: int = 8192
     paired_fpr_buf: bool = False
     load_whole_db: bool = False  # read index into RAM instead of mmap
-    low_mem: bool = False  # row seek: not ported; the streamer refuses it
+    low_mem: bool = False  # row seek: not ported; ignored on a device
 
 
 @dataclass
@@ -89,43 +97,70 @@ class QueryResult:
 
 
 class Block:
-    def __init__(self, db_dir: str, block_id: int, load_whole: bool = False):
+    """One block's metadata and bits; ``device`` (a torch device, or None
+    for the NumPy counter) is where it counts."""
+
+    def __init__(self, db_dir: str, block_id: int, load_whole: bool = False,
+                 device=None):
         self.meta = read_block_meta(db_dir, block_id)
         self.bits = read_block_bits(db_dir, block_id, mmap=not load_whole)
         self.sizes = np.asarray(self.meta.sizes, dtype=np.float64)
+        self.device = device
+        self._counter = None
+
+    @classmethod
+    def from_arrays(cls, meta, bits: np.ndarray, device=None) -> "Block":
+        """Block over an in-memory matrix (reference-layout DBs load
+        through the .uniki converter, index/uniki.py)."""
+        self = cls.__new__(cls)
+        self.meta = meta
+        self.bits = bits
+        self.sizes = np.asarray(meta.sizes, dtype=np.float64)
+        self.device = device
+        self._counter = None
+        return self
 
     def counts(self, hashes, mask, num_hashes) -> np.ndarray:
-        """[B, num_targets] int32 counts, in chunks of reads whose unpacked
-        bits stay near COUNT_CHUNK_BYTES."""
-        B, K = hashes.shape
-        T = self.bits.shape[1] * 32
-        step = max(1, COUNT_CHUNK_BYTES // max(1, K * T))
-        parts = [
-            count_matches_numpy(self.bits, hashes[lo:lo + step],
-                                mask[lo:lo + step], num_hashes)
-            for lo in range(0, B, step)
-        ]
-        c = np.concatenate(parts) if parts else np.zeros((0, T), np.int32)
+        """[B, num_targets] int32 counts: on the block's device, or with
+        the NumPy counter in chunks of reads whose unpacked bits stay near
+        COUNT_CHUNK_BYTES."""
+        if self.device is not None:
+            if self._counter is None:
+                self._counter = TorchBlockCounter(
+                    np.ascontiguousarray(self.bits), num_hashes, self.device
+                )
+            c = self._counter(hashes, mask)
+        else:
+            B, K = hashes.shape
+            T = self.bits.shape[1] * 32
+            step = max(1, COUNT_CHUNK_BYTES // max(1, K * T))
+            parts = [
+                count_matches_numpy(self.bits, hashes[lo:lo + step],
+                                    mask[lo:lo + step], num_hashes)
+                for lo in range(0, B, step)
+            ]
+            c = np.concatenate(parts) if parts else np.zeros((0, T),
+                                                             np.int32)
         return c[:, : self.meta.num_targets]
 
 
 class SearchDB:
-    """One database directory."""
+    """One database directory: the port's layout (db.json) or the
+    reference's (__db.yml + _blockNNN.uniki)."""
 
-    def __init__(self, db_dir: str, opt: SearchOptions):
-        if os.path.isfile(os.path.join(db_dir, "__db.yml")):
-            raise NotImplementedError(
-                f"{db_dir} is a reference-layout kmcp DB (__db.yml, .uniki "
-                "blocks): the port reads only its own db.json layout "
-                "(ROADMAP A12)"
-            )
+    def __init__(self, db_dir: str, opt: SearchOptions, device=None):
         self.path = db_dir
         self.opt = opt
-        self.info = read_db_info(db_dir)
-        self.blocks = [
-            Block(db_dir, i, opt.load_whole_db)
-            for i in range(len(self.info.blocks))
-        ]
+        if os.path.isfile(os.path.join(db_dir, DB_YML)):
+            self.info, ref_blocks = load_ref_db(db_dir)
+            self.blocks = [Block.from_arrays(m, b, device)
+                           for m, b in ref_blocks]
+        else:
+            self.info = read_db_info(db_dir)
+            self.blocks = [
+                Block(db_dir, i, opt.load_whole_db, device)
+                for i in range(len(self.info.blocks))
+            ]
         buf = 499 if opt.paired_fpr_buf else 249
         self.query_fpr = QueryFPRCache(self.info.fpr, buf)
         self.ks_desc = sorted(self.info.ks, reverse=True)
@@ -205,11 +240,21 @@ def _top_n_scores(matches: list[Match], n: int, sort_by: str) -> list[Match]:
 
 
 class SearchEngine:
-    """Multi-database batched search."""
+    """Multi-database batched search; ``device`` (a torch device) is where
+    the blocks count, None for the NumPy counter."""
 
-    def __init__(self, db_dirs: list[str], opt: SearchOptions):
+    def __init__(self, db_dirs: list[str], opt: SearchOptions, device=None):
         self.opt = opt
-        self.dbs = [SearchDB(d, opt) for d in db_dirs]
+        if opt.low_mem and device is not None:
+            # the blocks live in device memory, so row seek cannot apply:
+            # say so rather than drop the flag silently
+            print(
+                "[search] warning: --low-mem is ignored on a torch device "
+                "(index blocks are materialized in device memory); use "
+                "kmcp_tpu's --backend host for row-seek mode",
+                file=sys.stderr,
+            )
+        self.dbs = [SearchDB(d, opt, device) for d in db_dirs]
         for db in self.dbs:
             if opt.min_query_cov <= db.info.fpr:
                 raise SystemExit(
@@ -440,14 +485,17 @@ class SearchEngine:
     def _extract_matches(self, db, block, counts, nkmers, qis, round_out):
         opt = self.opt
         sizes = block.sizes
-        nk = np.asarray(nkmers, dtype=np.float64)[:, None]
-        c = counts.astype(np.float64)
-        cond = (
-            (counts >= opt.min_kmers)
-            & (c > nk * opt.min_query_cov)
-            & (c / sizes[None, :] >= opt.min_target_cov)
-        )
-        rows, cols = np.nonzero(cond)
+        # count >= min_kmers and count > n * min_query_cov, as one integer
+        # floor a row: the least integer c with float(c) > n * min_query_cov
+        # is floor(n * min_query_cov) + 1; the float64 tCov test then runs
+        # on those candidates only, not on every (read, target)
+        lo = np.floor(np.asarray(nkmers, dtype=np.float64)
+                      * opt.min_query_cov) + 1
+        lo = np.clip(np.maximum(lo, opt.min_kmers), None, 2**31 - 1)
+        rows, cols = np.nonzero(counts >= lo.astype(np.int32)[:, None])
+        tcov_ok = (counts[rows, cols].astype(np.float64) / sizes[cols]
+                   >= opt.min_target_cov)
+        rows, cols = rows[tcov_ok], cols[tcov_ok]
         if len(rows) == 0:
             return
         bmeta = block.meta

@@ -1,20 +1,33 @@
-"""The object engine's match counter, on the host in NumPy.
+"""The object engine's match counter.
 
 The port's copy of ``derive_locations`` and ``count_matches_numpy`` from
-kmcp_tpu/search/kernel.py:
+kmcp_tpu/search/kernel.py, and ``TorchBlockCounter``, the counterpart of
+its ``JaxBlockCounter`` (:145, with ``make_jax_counter`` :79 and
+``make_jax_counter_genome`` :112):
 
     counts[b, t] = sum_k  AND_h bits[ loc(hash[b,k],h) , t ]
 
 a row gather from the bit matrix, an AND-reduce over the ``h`` hash
 functions, a bit-unpack along the word axis and a sum over the k-mer axis,
-on a padded [B, K] uint64 hash batch with a validity mask.  It serves only
-the reads the streamer hands to the object engine (those over the k-mer
-dedup threshold); the device path counts with csrc/count_mask.cu.
+on a padded [B, K] uint64 hash batch with a validity mask.  That is what
+K2' computes (search/count.py), so ``TorchBlockCounter`` launches K2' on a
+CUDA tensor and takes its plain version on a CPU tensor; the NumPy counter
+stays as the oracle the tests hold it to.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from ..kmer import native
+from .count import check_rows, count_mask
+from .device_step import COUNTS_BYTES, FLOOR_NEVER
+
+# Windows per K2' row: a multiple of 32 under 256, so that K2' runs its
+# 8-plane counter (the 16-plane one spills); longer rows fold into
+# pseudo-rows of this many windows.
+ROW_WINDOWS = 224
 
 
 def derive_locations(
@@ -56,3 +69,82 @@ def count_matches_numpy(
     unpacked = np.unpackbits(by.reshape(b_ * k_, w4), axis=1, bitorder="little")
     counts = unpacked.reshape(b_, k_, w4 * 8).sum(axis=1, dtype=np.int32)
     return counts
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+class TorchBlockCounter:
+    """One block's counter on a torch device: its bits, with the all-zero
+    sentinel row appended, uploaded once.
+
+    A call derives int32 locations on the host (``native.locations``),
+    points masked windows at the sentinel row and counts with K2'
+    (``count_mask``, floors set so that no mask bit is set).  Rows of more
+    than ROW_WINDOWS windows (``-g`` genomes, long uniqued reads) fold into
+    pseudo-rows of ROW_WINDOWS windows whose counts add up on the device
+    per query; pseudo-rows without a valid window are not counted.  Rows
+    pad to a multiple of 1,024 and windows to a multiple of 32, as in
+    JaxBlockCounter, and K2' runs on chunks of rows whose counts stay near
+    COUNTS_BYTES."""
+
+    def __init__(self, bits: np.ndarray, num_hashes: int, device):
+        self.num_sigs, self.num_words = bits.shape
+        if self.num_sigs >= 2**31 - 1:
+            raise ValueError(f"{self.num_sigs} Bloom rows: too many for "
+                             "int32 locations")
+        self.num_hashes = num_hashes
+        self.device = torch.device(device)
+        ext = np.zeros((self.num_sigs + 1, self.num_words), dtype=np.uint32)
+        ext[:-1] = bits
+        self.bits = torch.from_numpy(ext.view(np.int32)).to(self.device)
+        self.thr = torch.full((32 * self.num_words,), FLOOR_NEVER,
+                              dtype=torch.int32, device=self.device)
+
+    def rows(self, hashes: np.ndarray, mask: np.ndarray):
+        """[B, K] hashes + mask -> (loc int32 [R, Kr, h], owner int64 [R]):
+        the K2' rows and the query each adds to (B for padding rows)."""
+        B, K = hashes.shape
+        S, h = self.num_sigs, self.num_hashes
+        width = ROW_WINDOWS if K > ROW_WINDOWS else _round_up(max(K, 1), 32)
+        n_sub = max(1, -(-K // width))
+        loc = np.full((B, n_sub * width, h), S, dtype=np.int32)
+        m = np.zeros((B, n_sub * width), dtype=bool)
+        m[:, :K] = mask
+        loc[:, :K] = native.locations(hashes, h, S)
+        loc[~m] = S
+        loc = loc.reshape(B * n_sub, width, h)
+        owner = np.repeat(np.arange(B, dtype=np.int64), n_sub)
+        live = m.reshape(B * n_sub, width).any(axis=1)
+        loc, owner = loc[live], owner[live]
+        R = _round_up(max(len(owner), 1), 1024)
+        pad = R - len(owner)
+        loc = np.concatenate([loc, np.full((pad, width, h), S, np.int32)])
+        owner = np.concatenate([owner, np.full(pad, B, np.int64)])
+        return loc, owner
+
+    def __call__(self, hashes: np.ndarray, mask: np.ndarray) -> np.ndarray:
+        """[B, K] uint64 hashes + [B, K] bool mask -> host int32 [B, 32 W]
+        counts."""
+        loc, owner = self.rows(hashes, mask)
+        return self.count_rows(loc, owner, hashes.shape[0]).cpu().numpy()
+
+    def count_rows(self, loc_np: np.ndarray, owner_np: np.ndarray,
+                   B: int) -> torch.Tensor:
+        """``rows``' output -> int32 [B, 32 W] counts on the device."""
+        T = 32 * self.num_words
+        loc = torch.from_numpy(loc_np).to(self.device)
+        owner = torch.from_numpy(owner_np).to(self.device)
+        check_rows(loc, self.bits.shape[0])  # once, not per chunk
+        step = max(1, COUNTS_BYTES // (4 * T))
+        cthr = torch.full((min(step, loc.shape[0]),), FLOOR_NEVER,
+                          dtype=torch.int32, device=self.device)
+        out = torch.zeros((B + 1, T), dtype=torch.int32, device=self.device)
+        for r0 in range(0, loc.shape[0], step):
+            r1 = min(loc.shape[0], r0 + step)
+            counts, _mask = count_mask(self.bits, loc[r0:r1],
+                                       cthr[: r1 - r0], self.thr,
+                                       rows_checked=True)
+            out.index_add_(0, owner[r0:r1], counts)
+        return out[:B]

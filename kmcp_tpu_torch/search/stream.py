@@ -1,9 +1,11 @@
 """Streaming search of single-end reads or read pairs on a torch device,
-over a one-block DB or a multi-block ``--block-screen --uniform-sigs`` DB.
+over a one-block DB (plain or sketch) or a multi-block ``--block-screen
+--uniform-sigs`` DB.
 
 Port of kmcp_tpu/search/stream.py ``StreamSearcher`` (``__init__``,
-``usable``, ``run``; :132-637) for its non-sketch device path (the dense
-tail for one block, the two-pass screened tail for several),
+``usable``, ``run``; :132-637) for its device path (the dense tail for one
+block, after window selection on a sketch DB; the two-pass screened tail
+for several),
 with the port's own copies of its helpers ``_unpack_result`` (:65, the
 ``(meta, aux)`` layouts only), ``_pack_reads_matrix`` (:104),
 ``_fmt_ratio_memo`` (:118) and its writers ``_write_native`` (:641) and
@@ -12,8 +14,8 @@ with the port's own copies of its helpers ``_unpack_result`` (:65, the
 the row bytes are the JAX streamer's.  Reads ship as ASCII rows.
 
 Single-end reads over the k-mer dedup threshold take the object-engine
-route, as in the JAX streamer (stream.py:565-584), here with the numpy
-counter; they are counted in ``slow_rows``.  Read pairs hash as one joined
+route, as in the JAX streamer (stream.py:565-584), counting on the same
+device; they are counted in ``slow_rows``.  Read pairs hash as one joined
 row ``seq1 + N + seq2`` (the N resets the rolling window, so the row's
 k-mers are both mates'; stream.py:352-373, util-db-search.go:800-805), and
 rows over the threshold are uniqued on the device instead
@@ -29,7 +31,7 @@ import numpy as np
 import torch
 
 from ..kmer import native
-from .device import MULTI_BLOCK_NEEDS, TorchDeviceDB, two_pass_ready
+from .device import TorchDeviceDB, two_pass_ready
 from .engine import QueryResult, SearchEngine
 from .tsv import write_results
 
@@ -72,33 +74,40 @@ def _fmt_ratio_memo():
     return fmt
 
 
-def unsupported(engine: SearchEngine, paired: bool = False) -> str | None:
-    """Why the port cannot stream this search (naming the ROADMAP item that
-    will add it), or None when it can."""
+NOT_STREAMED = ("the streamer does not take this search (stream.usable); "
+                "run_search sends it to the object engine")
+
+
+def usable(engine: SearchEngine, paired: bool = False) -> bool:
+    """True when the streamer takes this search; every other search runs
+    on the object engine.  The gates of the JAX streamer's device path
+    (kmcp_tpu/search/stream.py:195-280), and non-canonical DBs, which the
+    device hash cannot serve (it hashes canonically; ROADMAP C)."""
     opt = engine.opt
     if len(engine.dbs) != 1:
-        return "searching several DBs at once needs the object engine (ROADMAP A8)"
+        return False
     db = engine.dbs[0]
-    if paired and opt.try_se:
-        return ("paired --try-se needs the object engine's retry plan "
-                "(ROADMAP A8)")
-    if len(db.blocks) != 1 and not two_pass_ready(db):
-        return MULTI_BLOCK_NEEDS
-    if db.is_sketch:
-        return "sketch DBs need device sketch selection (ROADMAP A7)"
     if not db.info.canonical:
-        return ("non-canonical DBs: the device hash is canonical only "
-                "(ROADMAP C)")
-    if opt.low_mem:
-        return "--low-mem row seek is an object-engine mode (ROADMAP A8)"
-    if opt.sort_by != "qcov" or opt.do_not_sort:
-        return ("sort orders other than qcov need the object engine "
-                "(ROADMAP A8)")
-    if opt.kmer_dedup_threshold >= 65535:
-        return "kmer_dedup_threshold >= 65535 overflows the uint16 result"
-    if len(db.blocks) == 1 and db.blocks[0].bits.shape[1] * 32 > 2**31 // 256:
-        return "more than 2^23 targets overflow the int32 flat candidate ids"
-    return None
+        return False
+    if opt.low_mem or opt.sort_by != "qcov" or opt.do_not_sort:
+        return False
+    if paired and opt.try_se:
+        return False
+    if opt.kmer_dedup_threshold >= 65535:  # the uint16 aux layout
+        return False
+    if db.is_sketch:
+        # window selection runs on the dense tail of single-end rows
+        # (device.py ``_sketch_locations``): a paired row would select
+        # across the mate junction
+        if paired or len(db.blocks) != 1:
+            return False
+        if db.info.syncmer and db.info.syncmer_s >= max(db.info.ks):
+            return False
+    if len(db.blocks) == 1:
+        # the dense tail's int32 flat candidate ids need B*T <= 2^31 with
+        # B >= 256
+        return db.blocks[0].bits.shape[1] * 32 <= 2**31 // 256
+    return two_pass_ready(db)
 
 
 class TorchStreamSearcher:
@@ -107,9 +116,8 @@ class TorchStreamSearcher:
 
     def __init__(self, engine: SearchEngine, device="cuda",
                  pass2: str = "auto"):
-        reason = unsupported(engine)
-        if reason:
-            raise NotImplementedError(reason)
+        if not usable(engine):
+            raise ValueError(NOT_STREAMED)
         self.engine = engine
         self.opt = engine.opt
         self.db = engine.dbs[0]
@@ -122,17 +130,12 @@ class TorchStreamSearcher:
         self.slow_rows = 0  # reads searched by the object engine
         self.retries = 0  # 4x-budget re-runs after a candidate overflow
 
-    @classmethod
-    def usable(cls, engine: SearchEngine, paired: bool = False) -> bool:
-        return unsupported(engine, paired) is None
-
     def run(self, queries, out, start_idx: int = 0, paired: bool = False,
             progress=None) -> tuple[int, int]:
         """queries: iterator of (id, seq, None), or with ``paired`` of (id,
         seq1, seq2) (seq2 may be empty).  Returns (total, matched)."""
-        reason = unsupported(self.engine, paired)
-        if reason:
-            raise NotImplementedError(reason)
+        if not usable(self.engine, paired):
+            raise ValueError(NOT_STREAMED)
         dev = self.dev
         # the dense tail's int32 flat ids b*T + t cap the batch at
         # B*T <= 2^31 (the screened tail's split ids do not); batches stay
@@ -158,7 +161,7 @@ class TorchStreamSearcher:
         if self.slow_rows:
             print(
                 f"[search] {self.slow_rows} reads over the k-mer dedup "
-                "threshold were searched by the numpy object engine",
+                "threshold were searched by the object engine",
                 file=sys.stderr,
             )
         return total, matched

@@ -5,9 +5,10 @@ on narrow and wide blocks, unsorted pairs, empty and crowded blocks; K6'
 at ragged S_pad and T, partial and padding tiles, multiplicity 256,
 sentinel-only reads, FLOOR_NEVER floors, bit 31 and two sweeps; K1''s
 value plane at single-end and paired row lengths, every modulus path and
-rows too long to stage in shared memory), and the count and screened
-tails, single-end and paired (in_dedup), on the card against their CPU
-runs.  Marked ``cuda``:
+rows too long to stage in shared memory), the count and screened tails,
+single-end and paired (in_dedup), a sketch DB's window selection after
+K1' and the object engine's TorchBlockCounter (K2' on short, wide, folded
+and -g rows), on the card against their CPU runs.  Marked ``cuda``:
 they skip without a card and run on the GPU machine with
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
@@ -428,3 +429,67 @@ def test_screened_tail_in_dedup_cuda_matches_cpu(cuda, pass2):
     assert outs[0][0][0] > 0
     np.testing.assert_array_equal(outs[0][0], outs[1][0])
     np.testing.assert_array_equal(outs[0][1], outs[1][1])
+
+
+@pytest.mark.parametrize("kind,param,max_hash,h", [
+    ("minimizer", 5, FULL, 1), ("minimizer", 15, FULL // 3, 3),
+    ("syncmer", 11, FULL, 1), ("syncmer", 5, FULL // 2, 2),
+])
+def test_sketch_transform_on_card_matches_cpu(cuda, kind, param, max_hash,
+                                              h):
+    """A sketch DB's streaming selection on the card (K1' at k with values,
+    at k = s for syncmers, then sketch_transform) equals the same calls on
+    the CPU (the plain versions), with K1' launched once, twice for
+    syncmers."""
+    from kmcp_tpu_torch.search.hash_loc import _U64
+    from kmcp_tpu_torch.search.sketch_device import sketch_transform
+
+    rng = np.random.default_rng(param + h)
+    k, S = 21, 3578
+    reads = _reads(rng, 1000, 160)
+    lens = (reads != 0).sum(dim=1).to(torch.int32)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        hash_loc.launches = 0
+        r = reads.to(dev)
+        loc, _nk, vals = hash_loc(r, k, S, _U64, h, values=True)
+        s_vals = (hash_loc(r, param, 1, _U64, 1, values=True)[2]
+                  if kind == "syncmer" else None)
+        outs.append([t.cpu() for t in sketch_transform(
+            kind, k, param, S, max_hash, loc, vals, s_vals, lens.to(dev))])
+        if dev.type == "cuda":
+            assert hash_loc.launches == (2 if kind == "syncmer" else 1)
+    for got, want in zip(*outs):
+        assert torch.equal(got, want)
+    assert 0 < int(outs[0][1].sum()) < 1000 * 140
+
+
+@pytest.mark.parametrize("W,h,B,K", [
+    (5, 3, 300, 130), (130, 1, 2100, 160), (4, 1, 3, 1000),
+    (8, 3, 1, 262_150),
+])
+def test_block_counter_on_card_matches_cpu(cuda, W, h, B, K):
+    """The object engine's TorchBlockCounter launches K2' on the card and
+    equals its CPU run (K2''s plain version) and the NumPy counter: short
+    rows, a wide block, rows folded into pseudo-rows, one -g row."""
+    from kmcp_tpu_torch.search.kernel import (
+        TorchBlockCounter,
+        count_matches_numpy,
+    )
+
+    rng = np.random.default_rng(W + K)
+    S = 4001
+    bits = (rng.integers(0, 2**32, (S, W), dtype=np.uint32)
+            & rng.integers(0, 2**32, (S, W), dtype=np.uint32))
+    hashes = rng.integers(0, 2**64, (B, K), dtype=np.uint64)
+    mask = np.arange(K)[None, :] < rng.integers(0, K + 1, B)[:, None]
+    mask[0] = True
+    count_mask.launches = 0
+    got = TorchBlockCounter(bits, h, cuda)(hashes, mask)
+    assert count_mask.launches > 0
+    np.testing.assert_array_equal(
+        got, TorchBlockCounter(bits, h, "cpu")(hashes, mask))
+    if B * K <= 300 * 1000:
+        np.testing.assert_array_equal(
+            got, count_matches_numpy(bits, hashes, mask, h))
+    assert got[0].sum() > 0

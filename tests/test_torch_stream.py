@@ -1,7 +1,8 @@
 """The slice end to end on the CPU: kmcp_tpu_torch's streaming search (the
 kernels' plain versions) must write a TSV byte-identical to
 ``--backend host`` and to the JAX streamer on the CPU, on tiny DBs built
-with the repo's own compute + index; searches outside the slice raise."""
+with the repo's own compute + index; each search streams or runs the object
+engine as the JAX streamer routes it."""
 
 import dataclasses
 import io
@@ -18,7 +19,7 @@ from kmcp_tpu.search.engine import SearchEngine, SearchOptions
 from kmcp_tpu.search.stream import StreamSearcher
 from kmcp_tpu_torch.commands.search import run_search
 from kmcp_tpu_torch.search import engine as port_engine
-from kmcp_tpu_torch.search.stream import TorchStreamSearcher, unsupported
+from kmcp_tpu_torch.search.stream import TorchStreamSearcher, usable
 
 torch.set_num_threads(1)
 
@@ -169,8 +170,10 @@ def test_min_target_cov_matches_numpy_engine(tmp_path):
 
 
 def test_unsupported_searches_raise(tmp_path, monkeypatch):
-    """Outside the slice the port raises, naming the ROADMAP item; it never
-    runs another engine in the slice's place."""
+    """Routing: each search streams or runs the object engine as the JAX
+    streamer decides (kmcp_tpu/search/stream.py:195-280), and nothing
+    raises for a search the streamer turns down; the streamer itself
+    refuses those, and a CUDA-less ``device="cuda"`` still raises."""
     rng = np.random.default_rng(9)
     genomes = random_genomes(rng, 3, 20000)
     db = build_db(tmp_path / "one", genomes)
@@ -179,34 +182,44 @@ def test_unsupported_searches_raise(tmp_path, monkeypatch):
     fa = tmp_path / "q.fa"
     fa.write_text(f">q\n{genomes[0][:300].decode()}\n")
     q = [str(fa)]
-    # paired reads stream (A6), but not with --try-se (A8), nor on a
-    # sketch DB (A7)
-    with pytest.raises(NotImplementedError, match="A8"):
-        run_search(db, read1=q[0], read2=q[0], device="cpu", verbose=False,
-                   opt=port_engine.SearchOptions(try_se=True))
-    with pytest.raises(NotImplementedError, match="A8"):
-        run_search(db, q, whole_file=True, device="cpu", verbose=False)
-    # a multi-block DB without union screens (no --block-screen)
-    with pytest.raises(NotImplementedError,
-                       match="--block-screen --uniform-sigs"):
-        run_search(multi, q, device="cpu", verbose=False)
-    with pytest.raises(NotImplementedError, match="A8"):
-        run_search(db, q, opt=port_engine.SearchOptions(low_mem=True),
-                   device="cpu", verbose=False)
-    with pytest.raises(NotImplementedError, match="A8"):
-        run_search(db, q, opt=port_engine.SearchOptions(sort_by="jacc"),
-                   device="cpu", verbose=False)
-    eng = port_engine.SearchEngine([db], port_engine.SearchOptions())
-    assert unsupported(eng) is None
+
+    def route(db_dir, **kw) -> str:
+        stats: dict = {}
+        run_search(db_dir, out_file=str(tmp_path / "out.tsv"), device="cpu",
+                   verbose=False, stats=stats, **kw)
+        assert (tmp_path / "out.tsv").read_text().count("\tg0\t") >= 1
+        return stats["route"]
+
+    opt = port_engine.SearchOptions
+    assert route(db, files=q) == "stream"
+    assert route(db, read1=q[0], read2=q[0]) == "stream"
+    assert route(db, read1=q[0], read2=q[0], opt=opt(try_se=True)) == "engine"
+    assert route(db, files=q, whole_file=True) == "engine"
+    assert route(multi, files=q) == "engine"  # no union screens
+    assert route(db, files=q, opt=opt(low_mem=True)) == "engine"
+    assert route(db, files=q, opt=opt(sort_by="jacc")) == "engine"
+    assert route(db, files=q, opt=opt(kmer_dedup_threshold=65535)) == "engine"
+
+    eng = port_engine.SearchEngine([db], opt())
+    assert usable(eng) and usable(eng, paired=True)
+    assert not usable(port_engine.SearchEngine([db, db], opt()))
+    info = eng.dbs[0].info
+    # sketch DBs stream single-end over one block, with s < k for syncmers
     eng.dbs[0].is_sketch = True
-    assert "A7" in unsupported(eng)
-    assert "A7" in unsupported(eng, paired=True)
-    with pytest.raises(NotImplementedError, match="A7"):
+    eng.dbs[0].info = dataclasses.replace(info, minimizer=True,
+                                          minimizer_w=5)
+    assert usable(eng) and not usable(eng, paired=True)
+    with pytest.raises(ValueError, match="object engine"):
         TorchStreamSearcher(eng, "cpu").run(iter([]), io.StringIO(),
                                             paired=True)
+    eng.dbs[0].info = dataclasses.replace(info, syncmer=True, syncmer_s=21)
+    assert not usable(eng)
+    eng.dbs[0].info = dataclasses.replace(info, syncmer=True, syncmer_s=11)
+    assert usable(eng)
     eng.dbs[0].is_sketch = False
-    eng.dbs[0].info = dataclasses.replace(eng.dbs[0].info, canonical=False)
-    with pytest.raises(NotImplementedError, match="canonical"):
+    eng.dbs[0].info = dataclasses.replace(info, canonical=False)
+    assert not usable(eng)
+    with pytest.raises(ValueError, match="object engine"):
         TorchStreamSearcher(eng, "cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
