@@ -6,7 +6,8 @@ single-block DB and over a multi-block ``--block-screen --uniform-sigs`` DB
 (the two-pass screened search), read pairs, sketch DBs and the searches
 the object engine runs, through the entry points a user calls
 (``python -m kmcp_tpu_torch compute / index`` to build the DBs, then
-``kmcp_tpu_torch.commands.search.run_search``).  Every input is made here
+``kmcp_tpu_torch.commands.search.run_search``), and the search TSVs
+through ``merge`` and ``profile``.  Every input is made here
 from fixed seeds; nothing outside the checkout is read, and nothing of JAX
 or of the JAX package is imported here.
 
@@ -87,7 +88,28 @@ raises, exit non-zero):
      DB; each TSV byte-identical to the run with the kernels bound to their
      plain versions on the card, the route "engine", K2' launched; then a
      stage-timed rerun of each (host hashing, locations, K2', the D2H of
-     the counts, host extraction, writer).
+     the counts, host extraction, writer);
+ 10. the pipeline from the card's TSVs: phase 4's single-end TSV and phase
+     7's paired dense TSV through the port's ``profile`` and ``merge`` (the
+     command line's entry point, in process), with a taxdump written here
+     (256 genera of 8 species, one species per genome) and its taxid.map:
+     (a) ``profile -m 1 -T -X -C -M -B`` of each TSV: all 40 source genomes
+     in the profile, genomes outside them at most 0.1% in all, the CAMI
+     report's percentages at most 100.01 at every rank with the genus total
+     equal to the species total within 0.01, at least 99% of the source
+     reads binned to their genome's taxid and at most 1% of the junk reads
+     binned at all (of the junk pairs, whose mate 1 is from a source
+     genome, at most 1% binned outside the 40 source genomes) (mode 1, KMCP's "higher recall" preset: phase 4 gives a
+     genome ~23 reads a chunk, under mode 3's 50); (b) ``--low-mem`` with
+     KMCP_TPU_PARSE_CHUNK = 1 MiB, its reports byte-identical to (a)'s;
+     (c) phase 4's TSV split into two shard TSVs by target (g00000-g01023
+     and g01024-g02047, each with its own '#' stat lines), merged back by
+     ``merge``: the rows of the unsplit TSV as a multiset (hits included),
+     descending qCov within each query, and the merged TSV's profile,
+     reports and binning byte-identical to (a)'s; host seconds by stage
+     (parse, profile stages 1-3, the four stages + EM, writers, binning,
+     merge), with the card's name and power limit.  Phase 10 launches no
+     kernel.
 Every main-path run sets all four kernels' launch counts to 0 just before
 it and reads them just after.
 Then one JSON line of kernel results, the card's name and power limit, and
@@ -780,7 +802,7 @@ def phase_main_path(torch, dev, label: str, db: str, reads: str,
             + f"; run_search wall {wall:.3f}; steady {total / steady:.1f} "
             "reads/s (without engine open and streamer set-up)")
     return {"launches": launches, "device_rps": total / dev_s,
-            "retries": stats["retries"]}
+            "retries": stats["retries"], "out": out_dev}
 
 
 @contextlib.contextmanager
@@ -982,7 +1004,7 @@ def phase_paired(torch, dev, label: str, db: str, r1: str, r2: str,
         + f"; run_search wall {timed['wall']:.3f}; steady "
         f"{N_READS / steady:.1f} pairs/s (without engine open and streamer "
         "set-up)")
-    return {"launches": la, "breakdown": acc}
+    return {"launches": la, "breakdown": acc, "out": run["out"]}
 
 
 def link_genomes(gdir: str, src: str, indices) -> str:
@@ -1216,6 +1238,292 @@ def phase_engine(torch, dev, genome_src: str, pool, wide_db: str,
     return out
 
 
+# ------------------------------------------------------------- phase 10
+PROFILE_MODE = "1"  # KMCP's "higher recall" preset: >= 5 reads in 60% of chunks
+GENERA = 256  # phase 10's taxdump: 256 genera of 8 species, one per genome
+MIN_OWN_SHARE = 0.99  # of source reads binned to their own genome's taxid
+MAX_JUNK_SHARE = 0.01  # of junk reads binned at all
+MAX_OTHER_PCT = 0.1  # profile percentage of all genomes outside the 40
+LOW_MEM_CHUNK = 1 << 20  # KMCP_TPU_PARSE_CHUNK of the --low-mem run
+
+
+def write_taxdump(root: str, n_genomes: int) -> tuple[str, str]:
+    """A taxdump for phase 4's genomes: root, superkingdom, phylum, class,
+    order, family, GENERA genera, then one species per genome g<i>; and
+    the taxid.map of the genome names.  Returns (taxdump dir, map)."""
+    tax = os.path.join(root, "taxdump")
+    os.makedirs(tax, exist_ok=True)
+    nodes = [(1, 1, "no rank", "root"), (2, 1, "superkingdom", "Bacteria"),
+             (3, 2, "phylum", "Phylum S"), (4, 3, "class", "Class S"),
+             (5, 4, "order", "Order S"), (6, 5, "family", "Family S")]
+    per_genus = n_genomes // GENERA
+    nodes += [(1000 + g, 6, "genus", f"Genus {g}") for g in range(GENERA)]
+    nodes += [(100_000 + i, 1000 + i // per_genus, "species", f"Species {i}")
+              for i in range(n_genomes)]
+    with open(os.path.join(tax, "nodes.dmp"), "w") as f:
+        f.writelines(f"{t}\t|\t{p}\t|\t{r}\t|\n" for t, p, r, _ in nodes)
+    with open(os.path.join(tax, "names.dmp"), "w") as f:
+        f.writelines(f"{t}\t|\t{n}\t|\t\t|\tscientific name\t|\n"
+                     for t, _, _, n in nodes)
+    tmap = os.path.join(root, "taxid.map")
+    with open(tmap, "w") as f:
+        f.writelines(f"g{i:05d}\t{100_000 + i}\n" for i in range(n_genomes))
+    return tax, tmap
+
+
+@contextlib.contextmanager
+def host_stage_timers(acc: dict):
+    """Time the profile and merge commands' stages on the host clock, by
+    wrapping the functions they call: the parse (in-memory and
+    ``--low-mem``), profile stage 1, stage 2 (pairwise ambiguity), stage 3
+    (disambiguation), the whole four stages + EM (``run``, and
+    ``run_spilled``), each report writer, and merge's k-way merge.
+    Seconds accumulate in ``acc``.  (The binning is a generator that the
+    command drains as it writes, so it is timed as the rest of the
+    wall.)"""
+    from kmcp_tpu_torch.commands import profile as command
+    from kmcp_tpu_torch.merge import merge
+    from kmcp_tpu_torch.profile import fast, spill
+
+    def timed(key, fn):
+        def wrapper(*args, **kwargs):
+            t0 = time.time()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                acc[key] = acc.get(key, 0.0) + time.time() - t0
+        return wrapper
+
+    binds = [(fast, "flat_from_files", "parse"),
+             (spill, "spill_from_files", "parse_low_mem"),
+             (fast.FastProfiler, "_accumulate_stage1", "stage1"),
+             (fast.FastProfiler, "_count_amb", "stage2"),
+             (fast.FastProfiler, "_megapath_deletions", "stage3"),
+             (fast.FastProfiler, "run", "stages_and_em"),
+             (spill, "run_spilled", "stages_and_em_low_mem"),
+             (command, "write_kmcp_profile", "write_profile"),
+             (command, "write_cami_profile", "write_cami"),
+             (command, "write_metaphlan_profile", "write_metaphlan"),
+             (merge, "_run_merge_native", "merge")]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in binds]
+    for obj, name, key in binds:
+        setattr(obj, name, timed(key, getattr(obj, name)))
+    try:
+        yield
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+
+
+def read_text(path: str) -> str:
+    import gzip
+
+    with (gzip.open(path, "rt") if path.endswith(".gz") else open(path)) as f:
+        return f.read()
+
+
+def tsv_rows(path: str) -> list[str]:
+    return [ln for ln in read_text(path).splitlines()
+            if ln and not ln.startswith("#")]
+
+
+def split_by_target(tsv: str, out_dir: str, n_first: int) -> list[str]:
+    """Phase 4's TSV split into two shard TSVs by target: g<i> with
+    i < n_first, and the rest; each keeps the header and writes its own
+    '#' stat lines (hits rewritten per shard), as searches of two DB shards
+    would return them."""
+    text = read_text(tsv)
+    lines = text.splitlines()
+    total = int(text.split("# input queries: ")[1].split("\n")[0])
+    rows = [ln.split("\t") for ln in lines if ln and not ln.startswith("#")]
+    paths = []
+    for h in range(2):
+        part = [c for c in rows if (int(c[5][1:]) < n_first) == (h == 0)]
+        hits: dict = {}
+        for c in part:
+            hits[c[14]] = hits.get(c[14], 0) + 1
+        path = os.path.join(out_dir, f"shard{h}.tsv")
+        with open(path, "w") as f:
+            f.write(lines[0] + "\n")
+            for c in part:
+                c = list(c)
+                c[4] = str(hits[c[14]])
+                f.write("\t".join(c) + "\n")
+            pct = len(hits) / total * 100 if total else 0.0
+            f.write(f"# input queries: {total}\n# matched queries: "
+                    f"{len(hits)}\n# matched percentage: {pct:.4f}%\n")
+        paths.append(path)
+    return paths
+
+
+def check_profile(tag: str, out: dict, pool, tax: str, tmap: str,
+                  tsv: str, paired: bool) -> dict:
+    """Phase 10 (a)'s checks of one profile run's files (``out``: the
+    profile, CAMI and binning paths, and the reads).  A junk read j<i> is
+    random; a junk pair j<i> has a random mate 2 but mate 1 from one of
+    the 40 source genomes, so it may bin to that genome: ``paired`` allows
+    any of the 40 source genomes' taxids for them, and no other."""
+    from kmcp_tpu_torch.cli import main as cli
+
+    rows = [ln.split("\t") for ln in read_text(out["profile"]).splitlines()[1:]]
+    pct = {r[0]: float(r[1]) for r in rows}
+    source = {f"g{int(g):05d}" for g in pool}
+    missing = sorted(source - set(pct))
+    if missing:
+        # why: the reference engine's --debug trace of the missing genomes
+        dbg = os.path.join(os.path.dirname(out["profile"]), "debug.txt")
+        cli(["-q", "profile", "-m", PROFILE_MODE, "-T", tmap, "-X", tax,
+             tsv, "-o", os.devnull, "--debug", dbg])
+        why = [ln for ln in read_text(dbg).splitlines()
+               if any(g in ln for g in missing)]
+        raise AssertionError(f"{tag}: {len(missing)} source genomes not in "
+                             f"the profile: {missing[:5]}; {why[:5]}")
+    other = sum(v for g, v in pct.items() if g not in source)
+    if other > MAX_OTHER_PCT:
+        raise AssertionError(f"{tag}: genomes outside the 40 hold {other}%")
+    by_rank: dict = {}
+    for ln in read_text(out["cami"]).splitlines():
+        if ln and not ln.startswith("@"):
+            c = ln.split("\t")
+            by_rank[c[1]] = by_rank.get(c[1], 0.0) + float(c[4])
+    if (max(by_rank.values()) > 100.01
+            or abs(by_rank["genus"] - by_rank["species"]) > 0.01):
+        raise AssertionError(f"{tag}: CAMI rank sums {by_rank}")
+    bins = {}
+    for ln in read_text(out["binning"]).splitlines():
+        if ln and not ln.startswith(("#", "@")):
+            q, t = ln.split("\t")
+            bins[q] = int(t)
+    queries = [ln[1:].split()[0] for ln in read_text(out["reads"]).splitlines()
+               [::4]]
+    src = [q for q in queries if q.startswith("r")]
+    junk = [q for q in queries if q.startswith("j")]
+    own = sum(bins.get(q) == 100_000 + int(q.split(".g")[1]) for q in src)
+    junk_in = sum(q in bins for q in junk)
+    source_taxa = {100_000 + int(g) for g in pool}
+    junk_bad = (sum(q in bins and bins[q] not in source_taxa for q in junk)
+                if paired else junk_in)
+    if (own < MIN_OWN_SHARE * len(src)
+            or junk_bad > MAX_JUNK_SHARE * len(junk)):
+        raise AssertionError(
+            f"{tag}: {own}/{len(src)} source reads binned to their genome, "
+            f"{junk_in}/{len(junk)} junk reads binned, {junk_bad} of them "
+            f"{'outside the 40 source genomes' if paired else 'at all'}")
+    log(f"{tag}: all 40 source genomes profiled ({len(pct)} references, "
+        f"{other:.6f}% outside the 40); CAMI rank sums "
+        f"{min(by_rank.values()):.6f}-{max(by_rank.values()):.6f}%, genus "
+        f"{by_rank['genus']:.6f} = species {by_rank['species']:.6f}; binning: "
+        f"{own}/{len(src)} source reads to their genome's taxid, "
+        f"{junk_in}/{len(junk)} junk {'pairs' if paired else 'reads'} "
+        f"binned"
+        + (f", {junk_bad} outside the 40 source genomes" if paired else ""))
+    return {"references": len(pct), "own": own / len(src),
+            "junk": junk_in / len(junk) if junk else 0.0}
+
+
+def phase_pipeline(single_tsv: str, single_reads: str, paired_tsv: str,
+                   paired_reads: str, pool, n_genomes: int,
+                   smi: str) -> dict:
+    """Phase 10: the TSVs that phases 4 and 7 wrote on the card through the
+    port's ``merge`` and ``profile`` (python -m kmcp_tpu_torch's entry
+    point, in process): (a) ``profile -T -X -C -M -B`` of each; (b)
+    ``--low-mem`` with a small parse chunk, byte-identical to (a); (c)
+    phase 4's TSV split into two shards by target, merged back: the same
+    rows (hits included), descending score within each query, and the
+    profile of (a) byte for byte.  Prints the host seconds by stage."""
+    from kmcp_tpu_torch.cli import main as cli
+
+    root = os.path.join(SCRATCH, "pipeline")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    tax, tmap = write_taxdump(root, n_genomes)
+    common = ["-q", "profile", "-m", PROFILE_MODE, "-T", tmap, "-X", tax]
+    reports = ("profile", "cami.profile", "metaphlan.profile")
+    times: dict = {}
+
+    def profile(name: str, tsv: str, binning: bool = True,
+                extra=()) -> dict:
+        d = os.path.join(root, name)
+        os.makedirs(d)
+        out = {k: os.path.join(d, k) for k in reports}
+        args = [*common, *extra, tsv, "-o", out["profile"],
+                "-C", out["cami.profile"], "-M", out["metaphlan.profile"]]
+        if binning:
+            out["binning"] = os.path.join(d, "b.binning.gz")
+            args += ["-B", out["binning"]]
+        acc: dict = {}
+        t0 = time.time()
+        with host_stage_timers(acc):
+            if cli(args):
+                raise RuntimeError(f"phase 10 profile {name} failed")
+        acc["wall"] = time.time() - t0
+        acc["binning_and_rest"] = acc["wall"] - sum(
+            v for k, v in acc.items()
+            if k.startswith(("parse", "stages_", "write_")))
+        times[name] = acc
+        out["cami"] = out["cami.profile"]
+        return out
+
+    def same_reports(tag: str, a: dict, b: dict):
+        for k in reports:
+            if read_text(a[k]) != read_text(b[k]):
+                raise AssertionError(f"phase 10 {tag}: {k} differs")
+
+    stats = {}
+    for name, tsv, reads in (("single", single_tsv, single_reads),
+                             ("paired", paired_tsv, paired_reads)):
+        out = profile(name, tsv)
+        out["reads"] = reads
+        stats[name] = check_profile(f"phase 10 (a) {name}", out, pool, tax,
+                                    tmap, tsv, paired=name == "paired")
+        os.environ["KMCP_TPU_PARSE_CHUNK"] = str(LOW_MEM_CHUNK)
+        try:
+            low = profile(f"{name}.low_mem", tsv, binning=False,
+                          extra=["--low-mem"])
+        finally:
+            del os.environ["KMCP_TPU_PARSE_CHUNK"]
+        same_reports(f"(b) {name} --low-mem", out, low)
+        stats[name]["out"] = out
+    log(f"phase 10 (b): --low-mem (KMCP_TPU_PARSE_CHUNK={LOW_MEM_CHUNK}) "
+        "profiles byte-identical to (a), single-end and paired")
+
+    shards = split_by_target(single_tsv, root, n_genomes // 2)
+    merged = os.path.join(root, "merged.tsv")
+    acc: dict = {}
+    t0 = time.time()
+    with host_stage_timers(acc):
+        if cli(["-q", "merge", *shards, "-o", merged]):
+            raise RuntimeError("phase 10 merge failed")
+    acc["wall"] = time.time() - t0
+    times["merge"] = acc
+    rows, unsplit = tsv_rows(merged), tsv_rows(single_tsv)
+    if sorted(rows) != sorted(unsplit):
+        raise AssertionError("phase 10 (c): merged rows differ from the "
+                             "unsplit TSV's")
+    prev = None
+    for r in rows:
+        c = r.split("\t")
+        if prev is not None and prev[0] == c[14] and float(c[11]) > prev[1]:
+            raise AssertionError(f"phase 10 (c): query {c[0]} not in "
+                                 "descending qCov")
+        prev = (c[14], float(c[11]))
+    m = profile("merged", merged)
+    same_reports("(c) merged", stats["single"]["out"], m)
+    if read_text(m["binning"]) != read_text(stats["single"]["out"]["binning"]):
+        raise AssertionError("phase 10 (c): binning differs")
+    log(f"phase 10 (c): 2 shards ({len(tsv_rows(shards[0]))} + "
+        f"{len(tsv_rows(shards[1]))} rows) merged back to the {len(rows)} "
+        "rows of phase 4's TSV (hits included), descending qCov within each "
+        "query; its profile, CAMI, MetaPhlAn and binning byte-identical to "
+        "(a)'s")
+    for name, acc in times.items():
+        log(f"phase 10 {name} stages (host clock, s; {smi}): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in acc.items()))
+    return {"times": times,
+            "stats": {k: {a: b for a, b in v.items() if a != "out"}
+                      for k, v in stats.items()}}
+
+
 def main() -> int:
     t_start = time.time()
     import torch
@@ -1297,6 +1605,10 @@ def main() -> int:
     engine = phase_engine(torch, dev, genome_src, pool, wide_db,
                           screened["db"], wide_reads, pair_files)
     walls["9 engine"] = time.time() - t0
+    t0 = time.time()
+    phase_pipeline(wide["out"], wide_reads, paired["dense"]["out"],
+                   pair_files[0], pool, WIDE_GENOMES, smi)
+    walls["10 pipeline"] = time.time() - t0
     for name, w in walls.items():
         log(f"phase {name}: {w:.1f} s")
 

@@ -8,7 +8,9 @@ csrc/group_count.cu).  The host layer it needs (FASTX, k-mer hashing and
 sketches, ``compute``, ``index``, the index format, FPR, TSV, the numpy
 object engine and the C++ natives under csrc/host/) is the package's own
 copy of kmcp_tpu's, file for file under the same paths, writing the same
-bytes.  The package imports torch, never jax, and nothing of kmcp_tpu.
+bytes; so are ``merge``, ``profile`` and the ``utils`` subcommands, which
+run on the host as in kmcp_tpu.  The package imports torch, never jax,
+and nothing of kmcp_tpu.
 """
 
 __version__ = "0.1.0"

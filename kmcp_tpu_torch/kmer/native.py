@@ -1,7 +1,7 @@
 """ctypes bridge to the port's host C++ (csrc/host/*.cpp): the rolling
 ntHash scan, the Bloom word-column build, the union-screen fill, the
-parallel sort + unique, Bloom-row locations, read-batch packing and the
-TSV row writer.
+parallel sort + unique, Bloom-row locations, read-batch packing, the
+TSV row writer, and the search-TSV scanners of ``profile`` and ``merge``.
 
 The port's copy of kmcp_tpu/kmer/native.py, cut to the entry points the
 port calls.  At first use ``g++`` builds the three sources into one shared
@@ -120,6 +120,27 @@ def get_lib() -> ctypes.CDLL:
             ctypes.c_char_p, i64p, ctypes.c_int64, ctypes.c_int64, u8p,
         ]
         lib.kt_pack_rows.restype = None
+        f64p = ctypes.POINTER(ctypes.c_double)
+        lib.kt_parse_search_tsv.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64, ctypes.c_double,
+            ctypes.c_double,
+            i64p, i32p, i32p, i64p, f64p,
+            i64p, i64p, i32p, i64p,
+            i64p, i64p,
+            i64p,
+        ]
+        lib.kt_parse_search_tsv.restype = ctypes.c_int64
+        lib.kt_merge_scan.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64, ctypes.c_int,
+            i64p, i64p, i64p, i64p, i64p, i64p, f64p, i64p,
+        ]
+        lib.kt_merge_scan.restype = ctypes.c_int64
+        lib.kt_merge_emit.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64, i64p,
+            i64p, i64p, i64p, i64p, i64p, i64p, i32p,
+            ctypes.c_void_p,
+        ]
+        lib.kt_merge_emit.restype = ctypes.c_int64
         _lib = lib
         return _lib
 
@@ -308,3 +329,135 @@ def sort_unique(hashes: np.ndarray, threads: int = 0) -> np.ndarray:
         _threads(threads),
     )
     return a[:m]
+
+
+def parse_search_tsv(buf: bytes, max_fpr: float, min_qcov: float) -> dict:
+    """Columnar parse of one search-result TSV's decompressed content
+    (row filters qCov >= min / FPR <= max, consecutive-query grouping,
+    target interning — KMCP's cmd/util-profile.go:94-182 semantics).
+
+    Returns a dict of arrays: group/target/frag/qlen/qcov per row,
+    tgt_names (list[bytes]), tgt_idx_num, tgt_gsize per target,
+    grp_off/grp_len per group (query-id spans in ``buf``), total_queries
+    and matched_queries.  Raises ValueError on malformed rows.
+    """
+    lib = get_lib()
+    # capacity: number of newlines bounds rows/groups/targets
+    cap = max(buf.count(b"\n") + 1, 1)
+    i64 = ctypes.POINTER(ctypes.c_int64)
+    i32 = ctypes.POINTER(ctypes.c_int32)
+    f64 = ctypes.POINTER(ctypes.c_double)
+    row_group = np.empty(cap, dtype=np.int64)
+    row_target = np.empty(cap, dtype=np.int32)
+    row_frag = np.empty(cap, dtype=np.int32)
+    row_qlen = np.empty(cap, dtype=np.int64)
+    row_qcov = np.empty(cap, dtype=np.float64)
+    tgt_off = np.empty(cap, dtype=np.int64)
+    tgt_len = np.empty(cap, dtype=np.int64)
+    tgt_idx_num = np.empty(cap, dtype=np.int32)
+    tgt_gsize = np.empty(cap, dtype=np.int64)
+    grp_off = np.empty(cap, dtype=np.int64)
+    grp_len = np.empty(cap, dtype=np.int64)
+    counts = np.zeros(5, dtype=np.int64)
+    rc = lib.kt_parse_search_tsv(
+        buf, len(buf), max_fpr, min_qcov,
+        row_group.ctypes.data_as(i64), row_target.ctypes.data_as(i32),
+        row_frag.ctypes.data_as(i32), row_qlen.ctypes.data_as(i64),
+        row_qcov.ctypes.data_as(f64),
+        tgt_off.ctypes.data_as(i64), tgt_len.ctypes.data_as(i64),
+        tgt_idx_num.ctypes.data_as(i32), tgt_gsize.ctypes.data_as(i64),
+        grp_off.ctypes.data_as(i64), grp_len.ctypes.data_as(i64),
+        counts.ctypes.data_as(i64),
+    )
+    if rc != 0:
+        raise ValueError("invalid kmcp search result format")
+    n_rows, n_groups, n_targets, total_q, matched_q = (
+        int(c) for c in counts
+    )
+    return {
+        "group": row_group[:n_rows],
+        "target": row_target[:n_rows],
+        "frag": row_frag[:n_rows],
+        "qlen": row_qlen[:n_rows],
+        "qcov": row_qcov[:n_rows],
+        "tgt_names": [
+            buf[int(o) : int(o) + int(l)]
+            for o, l in zip(tgt_off[:n_targets], tgt_len[:n_targets])
+        ],
+        "tgt_idx_num": tgt_idx_num[:n_targets].copy(),
+        "tgt_gsize": tgt_gsize[:n_targets].copy(),
+        "grp_off": grp_off[:n_groups].copy(),
+        "grp_len": grp_len[:n_groups].copy(),
+        "total_queries": total_q,
+        "matched_queries": matched_q,
+    }
+
+
+def merge_scan(buf: bytes, score_col: int) -> dict:
+    """Scan one search TSV for the k-way merge: per-row spans, hits-column
+    spans, query-id lengths, queryIdx and score, plus the file's stat-line
+    totals.  Raises ValueError on a row with fewer than 15 columns."""
+    lib = get_lib()
+    cap = max(buf.count(b"\n") + 1, 1)
+    i64 = ctypes.POINTER(ctypes.c_int64)
+    f64 = ctypes.POINTER(ctypes.c_double)
+    row_off = np.empty(cap, dtype=np.int64)
+    row_len = np.empty(cap, dtype=np.int64)
+    hits_off = np.empty(cap, dtype=np.int64)
+    hits_len = np.empty(cap, dtype=np.int64)
+    qid_len = np.empty(cap, dtype=np.int64)
+    qidx = np.empty(cap, dtype=np.int64)
+    score = np.empty(cap, dtype=np.float64)
+    counts = np.zeros(3, dtype=np.int64)
+    rc = lib.kt_merge_scan(
+        buf, len(buf), score_col,
+        row_off.ctypes.data_as(i64), row_len.ctypes.data_as(i64),
+        hits_off.ctypes.data_as(i64), hits_len.ctypes.data_as(i64),
+        qid_len.ctypes.data_as(i64), qidx.ctypes.data_as(i64),
+        score.ctypes.data_as(f64), counts.ctypes.data_as(i64),
+    )
+    if rc != 0:
+        raise ValueError("invalid kmcp search result format")
+    n = int(counts[0])
+    return {
+        "row_off": row_off[:n], "row_len": row_len[:n],
+        "hits_off": hits_off[:n], "hits_len": hits_len[:n],
+        "qid_len": qid_len[:n], "qidx": qidx[:n], "score": score[:n],
+        "total_queries": int(counts[1]),
+        "matched_queries": int(counts[2]),
+    }
+
+
+def merge_emit(buf: bytes, order, row_off, row_len, hits_off, hits_len,
+               qid_len, qidx, hits) -> bytes:
+    """Assemble merged output rows (hits column rewritten) in ``order``.
+    Returns bytes, or raises SystemExit on a query-id mismatch within a
+    queryIdx group (reporting the offending output position)."""
+    lib = get_lib()
+    n_out = len(order)
+    bufsize = int(row_len.sum()) + n_out * 12 + 64
+    out = _get_write_buf(bufsize)
+    i64 = ctypes.POINTER(ctypes.c_int64)
+    i32 = ctypes.POINTER(ctypes.c_int32)
+    rc = lib.kt_merge_emit(
+        buf, n_out,
+        np.ascontiguousarray(order, dtype=np.int64).ctypes.data_as(i64),
+        np.ascontiguousarray(row_off, dtype=np.int64).ctypes.data_as(i64),
+        np.ascontiguousarray(row_len, dtype=np.int64).ctypes.data_as(i64),
+        np.ascontiguousarray(hits_off, dtype=np.int64).ctypes.data_as(i64),
+        np.ascontiguousarray(hits_len, dtype=np.int64).ctypes.data_as(i64),
+        np.ascontiguousarray(qid_len, dtype=np.int64).ctypes.data_as(i64),
+        np.ascontiguousarray(qidx, dtype=np.int64).ctypes.data_as(i64),
+        np.ascontiguousarray(hits, dtype=np.int32).ctypes.data_as(i32),
+        out.ctypes.data,
+    )
+    if rc < 0:
+        i = -int(rc) - 2
+        r = int(order[i])
+        row = buf[int(row_off[r]) : int(row_off[r]) + int(row_len[r])]
+        qid = row.split(b"\t", 1)[0].decode()
+        raise SystemExit(
+            f"[queryIdx: {int(qidx[r])}] unmatched sequence Ids: "
+            f"'{qid}' — results must come from the same query file"
+        )
+    return out[:rc].tobytes()

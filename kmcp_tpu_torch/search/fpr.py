@@ -1,11 +1,11 @@
 """Query false-positive statistics.
 
-The port's copy of kmcp_tpu/search/fpr.py (less ``chernoff_fpr``):
-Theorem 2 of the Sequence Bloom Tree paper (Solomon & Kingsford,
+The port's copy of kmcp_tpu/search/fpr.py: Theorem 2 of the Sequence Bloom Tree paper (Solomon & Kingsford,
 doi:10.1038/nbt.3442), the probability that >= k of n query k-mers hit a
 Bloom filter with per-k-mer FPR p by chance, computed as
 ``1 - sum_{i<=k} C(n,i) p^i (1-p)^(n-i)`` in the reference's accumulation
-order and early-outs, so float results are identical.
+order and early-outs, so float results are identical; and the Chernoff
+bound that ``utils query-fpr -a`` prints beside it.
 """
 
 from __future__ import annotations
@@ -60,3 +60,8 @@ class QueryFPRCache:
             v = query_fpr(n, k, self.fpr)
             self._cache[key] = v
         return v
+
+
+def chernoff_fpr(p: float, k: float, l: float) -> float:
+    """Chernoff upper bound on query FPR."""
+    return math.exp(-l * (k - p) * (k - p) / (2.0 * (1.0 - p)))

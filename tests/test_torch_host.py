@@ -2,8 +2,11 @@
 
 - No module of kmcp_tpu_torch and no line of chip_smoke.py imports jax or
   anything of kmcp_tpu (a static parse of every file).
-- ``python -m kmcp_tpu_torch compute``, ``index`` and ``search --device
-  cpu`` run end to end with no jax and no kmcp_tpu module loaded.
+- ``python -m kmcp_tpu_torch compute``, ``index``, ``search --device
+  cpu``, ``merge``, ``profile`` and ``utils query-fpr`` run end to end
+  with no jax and no kmcp_tpu module loaded.
+- The port's parser has every subcommand, ``utils`` subcommand and
+  option of kmcp_tpu's, with the same defaults.
 - The port's ``compute`` + ``index`` write DB directories byte-identical
   to kmcp_tpu's on the same seeded genomes (one block, screened blocks,
   the reference partition with three hashes, a scaled minimizer sketch).
@@ -14,6 +17,7 @@
   kmcp_tpu's results for reads over the k-mer dedup threshold.
 """
 
+import argparse
 import ast
 import dataclasses
 import glob
@@ -32,12 +36,12 @@ from kmcp_tpu.search import device as jax_device
 from kmcp_tpu.search import device_screened as jax_screened
 from kmcp_tpu.search.engine import SearchEngine as JaxEngine
 from kmcp_tpu.search.engine import SearchOptions as JaxOptions
-from kmcp_tpu_torch.cli import main as port_cli
 from kmcp_tpu_torch.commands.compute import ComputeOptions, run_compute
 from kmcp_tpu_torch.index.build import run_index
 from kmcp_tpu_torch.search import device as port_device
 from kmcp_tpu_torch.search import engine as port_engine
 
+from .test_torch_profile import write_taxdump
 from .test_torch_stream import mixed_reads, random_genomes
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -84,7 +88,8 @@ def write_genomes(gdir, genomes):
 
 def test_command_line_loads_no_jax_and_nothing_of_kmcp_tpu(tmp_path):
     """compute -> index (one block, and screened blocks) -> search --device
-    cpu, of single reads and of read pairs (-1/-2), through ``python -m
+    cpu, of single reads and of read pairs (-1/-2), then merge -> profile
+    -T -X of the TSVs and utils query-fpr, through ``python -m
     kmcp_tpu_torch``, each in a process that fails if a jax or kmcp_tpu
     module is in sys.modules at exit."""
     rng = np.random.default_rng(4)
@@ -143,13 +148,60 @@ def test_command_line_loads_no_jax_and_nothing_of_kmcp_tpu(tmp_path):
                 if not ln.startswith("#")]
         assert len({r[0] for r in rows}) == 40
         assert all(r[1] == "300" for r in rows)  # qLen = len1 + len2
+    # the host commands on those TSVs: merge -> profile, and a utils
+    tax, tmap = write_taxdump(str(tmp_path), len(genomes))
+    merged, prof = tmp_path / "merged.tsv", tmp_path / "p.profile"
+    run("merge", tmp_path / "one.tsv", tmp_path / "screened.tsv",
+        "-o", merged)
+    run("profile", "-T", tmap, "-X", tax, "-m", "0", merged, "-o", prof,
+        "-C", tmp_path / "cami", "-B", tmp_path / "b.binning")
+    assert prof.read_text().startswith("ref\tpercentage")
+    assert (tmp_path / "cami.profile").read_text().startswith("@SampleID")
+    run("utils", "query-fpr", "-a", "-o", tmp_path / "fpr.tsv")
+    assert (tmp_path / "fpr.tsv").read_text().count("\t") == 4
 
 
-def test_not_ported_commands_exit_naming_roadmap_item():
-    for cmd in (["profile", "x.tsv", "-T", "t.map"], ["merge", "a", "b"],
-                ["utils", "query-fpr"]):
-        with pytest.raises(SystemExit, match="not ported yet.*A11"):
-            port_cli(cmd)
+def _subparsers(parser) -> dict:
+    for act in parser._actions:
+        if isinstance(act, argparse._SubParsersAction):
+            return dict(act.choices)
+    return {}
+
+
+def _options(parser) -> dict:
+    """{option strings (or a positional's dest): (default, choices,
+    nargs)} of a parser's own actions, help and subcommands left out."""
+    out = {}
+    for a in parser._actions:
+        if isinstance(a, (argparse._HelpAction, argparse._SubParsersAction)):
+            continue
+        key = tuple(a.option_strings) or a.dest
+        choices = sorted(a.choices) if a.choices is not None else None
+        out[key] = (a.default, choices, a.nargs)
+    return out
+
+
+def test_parser_has_every_kmcp_tpu_subcommand_and_option():
+    """Every subcommand and ``utils`` subcommand of kmcp_tpu's parser is
+    the port's, with the same option strings, defaults and choices; only
+    ``search --device`` (the port's torch device) is the port's own."""
+    from kmcp_tpu.cli import build_parser as jax_build_parser
+    from kmcp_tpu_torch.cli import build_parser
+
+    jax_p, port_p = jax_build_parser(), build_parser()
+    assert _options(port_p) == _options(jax_p)
+    jax_sub, port_sub = _subparsers(jax_p), _subparsers(port_p)
+    assert sorted(port_sub) == sorted(jax_sub)
+    for name, jp in jax_sub.items():
+        got = _options(port_sub[name])
+        if name == "search":
+            assert got.pop(("--device",))[0] == "cuda"
+        assert got == _options(jp), name
+        if name == "utils":
+            ju, pu = _subparsers(jp), _subparsers(port_sub[name])
+            assert sorted(pu) == sorted(ju) and len(pu) == 10
+            for un, jup in ju.items():
+                assert _options(pu[un]) == _options(jup), un
 
 
 def dir_contents(root) -> dict:
