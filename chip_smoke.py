@@ -109,9 +109,22 @@ raises, exit non-zero):
      reports and binning byte-identical to (a)'s; host seconds by stage
      (parse, profile stages 1-3, the four stages + EM, writers, binning,
      merge), with the card's name and power limit.  Phase 10 launches no
-     kernel.
+     kernel;
+ 11. multi-device search (kmcp_tpu_torch.parallel): ranks spawned on the
+     card, (a) a world of one on nccl, mesh (1, 1): the fused dense search
+     (K1' + K2') on phase 4's DB and the screened search (K1' + K2' pass 1
+     + K5') on phase 6's DB, phase 4's reads in the streamer's 16,384-read
+     batches; (b) four ranks sharing cuda:0 over gloo, meshes (1, 4), (2,
+     2) and (4, 1): the same searches, at (1, 4) also K6' as pass 2, the
+     host-location step on phase 5's DB (5 words padded to 8) and one of
+     its batches from a budget of 8 that must overflow and retry; every
+     rank's (meta, aux) byte-identical to the single-device TorchDeviceDB
+     on the same batch, every rank's launches of each kernel of its path
+     above 0; each configuration's walls, launches and summed CUDA-event
+     kernel times by rank (not scale-out numbers: the ranks share one
+     card).
 Every main-path run sets all four kernels' launch counts to 0 just before
-it and reads them just after.
+it and reads them just after (phase 11: every job on every rank).
 Then one JSON line of kernel results, the card's name and power limit, and
 the last line ``{"ok": true, "device": {...}}``.
 
@@ -656,20 +669,11 @@ def check_best_hits(path: str, n_source: int) -> None:
         )
 
 
-def kernel_wrappers() -> dict:
-    """The four kernel wrappers by name; each counts its own launches."""
-    from kmcp_tpu_torch.search.count import count_mask
-    from kmcp_tpu_torch.search.group_count import group_count
-    from kmcp_tpu_torch.search.hash_loc import hash_loc
-    from kmcp_tpu_torch.search.pair_count import pair_count
-
-    return {"hash_loc": hash_loc, "count_mask": count_mask,
-            "pair_count": pair_count, "group_count": group_count}
-
-
 def counted_run(fn, *args, **kwargs):
     """fn(*args, **kwargs) with every kernel's launch count set to 0 just
     before it -> (its result, the launches it made, its wall seconds)."""
+    from kmcp_tpu_torch.parallel.dryrun import kernel_wrappers
+
     kernels = kernel_wrappers()
     for k in kernels.values():
         k.launches = 0
@@ -1524,6 +1528,189 @@ def phase_pipeline(single_tsv: str, single_reads: str, paired_tsv: str,
                       for k, v in stats.items()}}
 
 
+# ------------------------------------------------------------- phase 11
+P11_BATCH = 16_384  # the streamer's batch at 131,072 targets (2^31 / T)
+P11_MESHES = ((1, 4), (2, 2), (4, 1))
+P11_OVERFLOW_BUDGET = 8
+
+
+def fastq_batches(path: str, n: int) -> list[tuple[np.ndarray, np.ndarray]]:
+    """The first n batches of P11_BATCH reads of a FASTQ file as the
+    streamer ships them: zero-padded ASCII rows uint8 [B, lmax] (lmax
+    rounded up to 32, at least k + 31) and the lengths."""
+    from kmcp_tpu_torch.parallel.dryrun import read_matrix
+
+    with open(path, "rb") as f:
+        seqs = f.read().split(b"\n")[1::4][: n * P11_BATCH]
+    return [read_matrix(seqs[i : i + P11_BATCH])
+            for i in range(0, len(seqs), P11_BATCH)]
+
+
+def p11_jobs(wide, scr, narrow_loc) -> dict:
+    """Phase 11's plan: (a) the world of one rank, (b) the world of four.
+    A job is (name, db key, pass2, kind, args) as ``mesh_jobs`` takes it."""
+    budget = 2 * P11_BATCH  # the streamer's 2 slots a read
+
+    def reads(key, pass2, batches, tag=""):
+        return [(f"{key}{tag}.b{i}", key, pass2, "reads",
+                 (mat, lens, budget, False))
+                for i, (mat, lens) in enumerate(batches)]
+
+    dense_scr = reads("wide", "auto", wide) + reads("scr", "auto", scr)
+    plan_b = []
+    for shape in P11_MESHES:
+        jobs = list(dense_scr)
+        if shape == (1, 4):
+            jobs += reads("scr", "gemm", scr, ".gemm")
+            jobs += [(f"narrow.b{i}", "narrow", "auto", "loc",
+                      (loc, nk, budget))
+                     for i, (loc, nk) in enumerate(narrow_loc)]
+            loc, nk = narrow_loc[0]
+            jobs.append(("narrow.over", "narrow", "auto", "loc",
+                         (loc, nk, P11_OVERFLOW_BUDGET)))
+        plan_b.append((shape, jobs))
+    return {"a": ("nccl", 1, [((1, 1), dense_scr)]),
+            "b": ("gloo", 4, plan_b)}
+
+
+def p11_paths(name: str) -> set:
+    """The kernels a phase 11 job's path runs."""
+    if name.startswith("narrow"):
+        return {"count_mask"}
+    if name.startswith("scr"):
+        return {"hash_loc", "count_mask",
+                "group_count" if ".gemm" in name else "pair_count"}
+    return {"hash_loc", "count_mask"}
+
+
+def phase_sharded(torch, dev, smi: str, wide_db: str, narrow_db: str,
+                  scr_db: str, wide_reads: str, narrow_reads: str) -> dict:
+    """Phase 11: the multi-device search (kmcp_tpu_torch.parallel) on the
+    card, through ``TorchDeviceDB(mesh=...)`` on ranks spawned by
+    ``parallel.dryrun.spawn``: (a) a world of one rank on nccl, mesh (1, 1):
+    the fused dense search (K1' + K2') on phase 4's DB and the screened
+    search (K1' + K2' pass 1 + K5') on phase 6's DB, phase 4's 65,536 reads
+    in the streamer's 16,384-read batches; (b) four ranks on cuda:0 over
+    gloo, meshes (1, 4), (2, 2) and (4, 1): the same searches, at (1, 4)
+    also pass 2 on K6' ("gemm"), the host-location ("loc") step on phase
+    5's three-hash DB (5 words padded to 8) with phase 5's reads, and one
+    of its batches from a budget of 8 that must overflow, report the true
+    total and retry at 4x.  Every rank's (meta, aux) must be byte-identical
+    to the single-device TorchDeviceDB on the same batch (here, on the
+    card, in the same layout), and every rank must have launched each
+    kernel of the job's path.  The four ranks share one card, so their
+    walls and summed CUDA-event kernel times are not scale-out numbers."""
+    from kmcp_tpu_torch.parallel.dryrun import host_loc, mesh_jobs, run_job, \
+        spawn
+    from kmcp_tpu_torch.search.device import (TorchDeviceDB, numpy_state,
+                                              pad_words)
+    from kmcp_tpu_torch.search.engine import SearchEngine, SearchOptions
+
+    t0 = time.time()
+    dbs = {"wide": wide_db, "scr": scr_db, "narrow": narrow_db}
+    opt = SearchOptions()
+    opened = {k: SearchEngine([p], opt).dbs[0] for k, p in dbs.items()}
+    wide = fastq_batches(wide_reads, N_READS // P11_BATCH)
+    narrow_rows = opened["narrow"].blocks[0].bits.shape[0]
+    narrow_loc = []
+    for mat, lens in fastq_batches(narrow_reads, N_READS // P11_BATCH):
+        seqs = [bytes(row[:n]) for row, n in zip(mat, lens)]
+        narrow_loc.append(host_loc(seqs, 3, narrow_rows))
+    plans = p11_jobs(wide, wide, narrow_loc)
+    prep_s = time.time() - t0
+
+    # the single-device runs every rank is held to, on this card, in the
+    # layout of the (1, 4) mesh (only the narrow DB's words pad: 5 -> 8)
+    t0 = time.time()
+    want: dict = {}
+    for key, db in opened.items():
+        state = numpy_state(db, opt)
+        if key == "narrow":
+            state = pad_words(state, 4)
+        for pass2 in ("auto", "gemm") if key == "scr" else ("auto",):
+            single = TorchDeviceDB.from_numpy_state(state, opt, dev,
+                                                    db.query_fpr, pass2)
+            for _w, _n, plan in plans.values():
+                for _shape, jobs in plan:
+                    for name, k, p2, kind, args in jobs:
+                        if (k, p2) == (key, pass2) and name not in want:
+                            want[name] = run_job(single, kind, args)
+            del single
+    torch.cuda.empty_cache()
+    ref_s = time.time() - t0
+    log(f"phase 11 single-device references: {len(want)} batches in "
+        f"{ref_s:.1f} s (inputs {prep_s:.1f} s)")
+
+    out: dict = {}
+    for label, (backend, world, plan) in plans.items():
+        t0 = time.time()
+        ranks = spawn(mesh_jobs, world, (dbs, plan, True), "cuda:0",
+                      backend, timeout_s=600)
+        wall = time.time() - t0
+        for shape, jobs in plan:
+            cfgs: dict = {}
+            for name, *_ in jobs:
+                for r, res in enumerate(ranks):
+                    got = res[shape, name]
+                    w = want[name]
+                    if not (np.array_equal(got["meta"], w["meta"])
+                            and np.array_equal(got["aux"], w["aux"])
+                            and got["first_total"] == w["first_total"]):
+                        raise AssertionError(
+                            f"phase 11 ({label}) mesh{shape} {name}: rank "
+                            f"{r}'s (meta, aux) differs from the "
+                            "single-device run")
+                    missing = [k for k in p11_paths(name)
+                               if not got["launches"][k]]
+                    if missing:
+                        raise AssertionError(
+                            f"phase 11 ({label}) mesh{shape} {name}: rank "
+                            f"{r} launched no {missing}")
+                    cfg = cfgs.setdefault(name.split(".b")[0], {
+                        "batches": 0, "wall": [0.0] * world,
+                        "launches": [dict.fromkeys(got["launches"], 0)
+                                     for _ in range(world)],
+                        "kernel_ms": {}})
+                    cfg["wall"][r] += got["wall"]
+                    for k, v in got["launches"].items():
+                        cfg["launches"][r][k] += v
+                    for k, v in got["kernel_ms"].items():
+                        cfg["kernel_ms"][k] = cfg["kernel_ms"].get(k, 0) + v
+                cfgs[name.split(".b")[0]]["batches"] += 1
+            if label == "b" and shape == (1, 4):
+                over = ranks[0][shape, "narrow.over"]
+                if over["first_total"] <= P11_OVERFLOW_BUDGET:
+                    raise AssertionError("phase 11: the budget of 8 did not "
+                                         "overflow")
+                log(f"phase 11 (b) mesh(1, 4) narrow overflow: budget "
+                    f"{P11_OVERFLOW_BUDGET} reported the true total "
+                    f"{over['first_total']} on every rank (the single-device"
+                    f" total), retried 4x to budget {over['budget']}, "
+                    "byte-identical")
+            for cfg_name, cfg in cfgs.items():
+                log(f"phase 11 ({label}) {backend} mesh(d={shape[0]},"
+                    f"t={shape[1]}) {cfg_name}: {cfg['batches']} batches "
+                    "byte-identical on every rank; rank walls (s) "
+                    + ", ".join(f"{w:.3f}" for w in cfg["wall"])
+                    + "; launches by rank "
+                    + str([{k: v for k, v in la.items() if v}
+                           for la in cfg["launches"]])
+                    + "; summed CUDA-event ms over ranks: "
+                    + ", ".join(f"{k} {v:.3f}"
+                                for k, v in cfg["kernel_ms"].items()))
+            out[label, shape] = cfgs
+        log(f"phase 11 ({label}): {world} rank(s) on {backend}, spawn to "
+            f"finish {wall:.1f} s ({smi}; the ranks share one card: "
+            "correctness only, not scale-out)")
+    launches = {}
+    for (label, shape), cfgs in out.items():
+        for cfg_name, cfg in cfgs.items():
+            key = f"phase 11 ({label}) {shape} {cfg_name}"
+            launches[key] = {k: sum(la[k] for la in cfg["launches"])
+                             for k in cfg["launches"][0]}
+    return {"launches": launches}
+
+
 def main() -> int:
     t_start = time.time()
     import torch
@@ -1609,6 +1796,10 @@ def main() -> int:
     phase_pipeline(wide["out"], wide_reads, paired["dense"]["out"],
                    pair_files[0], pool, WIDE_GENOMES, smi)
     walls["10 pipeline"] = time.time() - t0
+    t0 = time.time()
+    sharded = phase_sharded(torch, dev, smi, wide_db, narrow_db,
+                            screened["db"], wide_reads, reads)
+    walls["11 sharded"] = time.time() - t0
     for name, w in walls.items():
         log(f"phase {name}: {w:.1f} s")
 
@@ -1634,7 +1825,8 @@ def main() -> int:
                    **{f"phase 8 {p}": n[name]
                       for p, n in sketch["launches"].items()},
                    **{f"phase 9 {p}": n[name]
-                      for p, n in engine["launches"].items()}}
+                      for p, n in engine["launches"].items()},
+                   **{p: n[name] for p, n in sharded["launches"].items()}}
 
         def timed(r) -> dict:
             # only K6' has a one-call library counterpart; K1''s ms is the

@@ -15,6 +15,13 @@ the device; the host arrays come from the port's copies of
 ``build_cmin_table`` and ``build_tmin_table`` (device.py:56,78),
 ``two_pass_ready`` and ``build_packed_union`` (device_screened.py:55,61)
 and ``_stack_blocks`` (device_step.py:990).
+
+With ``mesh`` (a ("d", "t") DeviceMesh, parallel/sharding.py) the DB is one
+rank's shard, laid out as the JAX ``DeviceDB(mesh=...)`` lays it
+(device.py:489-518, ``shard_state``): a one-block DB's word axis, padded to
+a multiple of t, or a screened multi-block DB's whole blocks; every search
+entry point then runs the mesh tails (``sharded_count_tail``,
+``sharded_screened_tail``) on the rank's ``d`` slice of the batch.
 """
 
 from __future__ import annotations
@@ -23,16 +30,36 @@ import numpy as np
 import torch
 
 from ..index.format import read_block_union, read_block_union_header
-from .device_step import count_tail, target_floor
+from .device_step import (
+    batch_slice,
+    count_tail,
+    global_target_ids,
+    mesh_place,
+    sharded_count_tail,
+    target_floor,
+)
 from .group_count import gemm_slabs, s_pad_for
 from .hash_loc import _U64, hash_loc
-from .screen import PASS2, pass2_kernel, screened_tail
+from .screen import (
+    PASS2,
+    pass2_kernel,
+    screened_tail,
+    sharded_screened_tail,
+)
 from .sketch_device import sketch_transform
 
 MULTI_BLOCK_NEEDS = (
     "multi-block DBs stream on the device only when indexed with "
     "--block-screen --uniform-sigs and one hash (ROADMAP A5)"
 )
+# kmcp_tpu/search/device.py:496-503, :556-557
+MESH_GEOMETRY = ("sharded multi-block DeviceDB needs uniform block "
+                 "geometry (index --uniform-sigs)")
+MESH_SCREEN = ("sharded multi-block DeviceDB needs the block screen "
+               "(index --block-screen --uniform-sigs)")
+# the loc step filters no read by length or k-mer count (JAX
+# device_step.py:892-918): the largest threshold the uint16 layout takes
+LOC_DEDUP = 65534
 
 
 def build_cmin_table(n_max: int, min_kmers: int, min_qcov: float,
@@ -155,6 +182,76 @@ def _stack_blocks(db):
     return stacked, names, indices, gsizes, sizes, row_off, w_max, row_offsets
 
 
+def check_mesh_db(db, t_size: int):
+    """Raise the JAX package's errors for a DB that a mesh of ``t_size``
+    target shards cannot hold (device.py:489-507, :556-557), in its order:
+    blocks of unequal row counts, blocks that do not divide t, a
+    multi-block DB without the screen."""
+    n_blocks = len(db.blocks)
+    if n_blocks == 1:
+        return
+    if len({b.bits.shape[0] for b in db.blocks}) != 1:
+        raise ValueError(MESH_GEOMETRY)
+    _check_mesh_blocks(n_blocks, t_size, two_pass_ready(db))
+
+
+def _check_mesh_blocks(n_blocks: int, t_size: int, screened: bool):
+    if n_blocks % t_size:
+        raise ValueError(
+            f"{n_blocks} blocks do not divide the 't' axis ({t_size})")
+    if not screened:
+        raise ValueError(MESH_SCREEN)
+
+
+def shard_state(state: dict, mesh_shape, coords) -> dict:
+    """One rank's part of ``numpy_state``'s arrays on a (d, t) mesh at
+    ``coords`` (i, j): a one-block DB pads its word axis to a multiple of t
+    (padding lanes named "", size 0, so their floors mask them) and keeps
+    words [j W_t, (j + 1) W_t); a multi-block DB, which needs the screen
+    and t | nb, keeps blocks [j nb_l, (j + 1) nb_l) and the whole union
+    table.  The per-target arrays stay whole (the host decodes global
+    target ids with them); ``shard`` records the layout."""
+    d_size, t_size = (int(v) for v in mesh_shape)
+    d_index, t_index = (int(v) for v in coords)
+    bits = np.asarray(state["bits_ext"])
+    w = bits.shape[1]
+    n_blocks = len(state["sizes"]) // (32 * w)
+    out = dict(state)
+    if n_blocks > 1:
+        _check_mesh_blocks(n_blocks, t_size, state.get("screen") is not None)
+        s_block = int(state["screen"]["s_block"])
+        nb_l = n_blocks // t_size
+        rows = bits[t_index * nb_l * s_block : (t_index + 1) * nb_l * s_block]
+        out["bits_ext"] = np.concatenate([rows, bits[-1:]])
+    else:
+        out = pad_words(state, t_size)
+        bits = out["bits_ext"]
+        w = bits.shape[1]
+        w_t = w // t_size
+        out["bits_ext"] = bits[:, t_index * w_t : (t_index + 1) * w_t]
+    out["shard"] = {"mesh_shape": (d_size, t_size),
+                    "coords": (d_index, t_index), "w": w}
+    return out
+
+
+def pad_words(state: dict, t_size: int) -> dict:
+    """A one-block state with its word axis padded to a multiple of t
+    (device.py:508-518): the padding lanes are named "", have size 0 and
+    tmin 1, so their floors mask them.  A mesh of t target shards holds
+    this layout, and so does the single-device run its results are held
+    to byte for byte (the flat ids b T + t count the padding lanes)."""
+    bits = np.asarray(state["bits_ext"])
+    pad = (-bits.shape[1]) % t_size
+    if not pad:
+        return dict(state)
+    out = dict(state, bits_ext=np.pad(bits, ((0, 0), (0, pad))))
+    for key, fill in (("names", ""), ("indices", 0), ("gsizes", 0),
+                      ("sizes", 0), ("sizes_pos", False), ("tmin", 1)):
+        a = np.asarray(state[key])
+        out[key] = np.concatenate([a, np.full(32 * pad, fill, a.dtype)])
+    return out
+
+
 def sketch_kind(info):
     """(kind, param) of a sketch DB's window selection: ("minimizer", w)
     or ("syncmer", s); None for a plain k-mer DB."""
@@ -207,34 +304,44 @@ def numpy_state(db, opt) -> dict:
 class TorchDeviceDB:
     """Row-stacked bit matrix on ``device`` plus its threshold tables and,
     for a multi-block DB, the screen.  ``pass2`` picks the screened pass-2
-    kernel: "pair" (K5'), "gemm" (K6') or "auto" (``pass2_kernel``)."""
+    kernel: "pair" (K5'), "gemm" (K6') or "auto" (``pass2_kernel``).
+    ``mesh``: a ("d", "t") DeviceMesh this process is a rank of; the DB
+    is then the rank's shard (``shard_state``)."""
 
-    def __init__(self, db, opt, device, pass2: str = "auto"):
-        self._init(numpy_state(db, opt), opt, device, db.query_fpr, pass2)
+    def __init__(self, db, opt, device, pass2: str = "auto", mesh=None):
+        if mesh is not None:
+            check_mesh_db(db, mesh_place(mesh)[1])
+        self._init(numpy_state(db, opt), opt, device, db.query_fpr, pass2,
+                   mesh)
 
     @classmethod
     def from_numpy_state(cls, state: dict, opt, device, query_fpr=None,
-                         pass2: str = "auto"):
+                         pass2: str = "auto", mesh=None):
         """Build from numpy arrays (e.g. a JAX ``DeviceDB``'s): bits_ext
         with its sentinel row, names, indices, gsizes, sizes, sizes_pos,
         tmin, ``cmin`` {n_max: table}, the scalars k, num_hashes, max_hash
         and, for a multi-block DB, ``screen`` {u_ext, num_bits, fprs,
         s_block} (a JAX ``DeviceDB.screen``), and for a sketch DB
         ``sketch`` (``sketch_kind``).  ``query_fpr`` builds cmin
-        tables the state lacks."""
+        tables the state lacks.  With ``mesh`` the rank builds its shard
+        of the state (``shard_state``)."""
         self = cls.__new__(cls)
-        self._init(state, opt, device, query_fpr, pass2)
+        self._init(state, opt, device, query_fpr, pass2, mesh)
         return self
 
-    def _init(self, state, opt, device, query_fpr, pass2):
+    def _init(self, state, opt, device, query_fpr, pass2, mesh=None):
         self.opt = opt
         self.device = torch.device(device)
         self.query_fpr = query_fpr
+        self.mesh = mesh
+        if mesh is not None:
+            d_size, t_size, d_index, t_index = mesh_place(mesh)
+            state = shard_state(state, (d_size, t_size), (d_index, t_index))
         bits = np.ascontiguousarray(state["bits_ext"], dtype=np.uint32)
         # a copy: the source may be a read-only index mmap or device array
         self.bits_ext = torch.tensor(bits.view(np.int32), device=self.device)
         self.total_rows = bits.shape[0] - 1  # also the sentinel row
-        self.w = bits.shape[1]
+        self.w = state["shard"]["w"] if mesh is not None else bits.shape[1]
         self.t_per_block = 32 * self.w
         self.names = [str(n) for n in state["names"]]
         self.indices = np.asarray(state["indices"], dtype=np.int64)
@@ -242,9 +349,16 @@ class TorchDeviceDB:
         self.sizes = np.asarray(state["sizes"], dtype=np.int64)
         self.n_blocks = len(self.sizes) // self.t_per_block
         self._tmin_np = np.asarray(state["tmin"], dtype=np.int32)
-        self.thr = torch.from_numpy(target_floor(
-            self._tmin_np, np.asarray(state["sizes_pos"], dtype=bool)
-        ).reshape(self.n_blocks, self.t_per_block)).to(self.device)
+        thr = target_floor(self._tmin_np,
+                           np.asarray(state["sizes_pos"], dtype=bool)
+                           ).reshape(self.n_blocks, self.t_per_block)
+        if mesh is not None and self.n_blocks == 1:
+            tg = global_target_ids(1, bits.shape[1], t_size, t_index)
+            thr = thr[:, tg.numpy()]
+        elif mesh is not None:
+            nb_l = self.n_blocks // t_size
+            thr = thr[t_index * nb_l : (t_index + 1) * nb_l]
+        self.thr = torch.from_numpy(np.ascontiguousarray(thr)).to(self.device)
         self._cmin_cache = {
             int(n): torch.from_numpy(np.array(t, dtype=np.int32)).to(
                 self.device)
@@ -268,10 +382,10 @@ class TorchDeviceDB:
                 "s_block": int(scr["s_block"]),
             }
             self.s_block = self.screen["s_block"]
-            if self.s_block * self.n_blocks != self.total_rows:
+            if self.s_block * self.thr.shape[0] != self.total_rows:
                 raise ValueError(
-                    f"{self.total_rows} rows are not {self.n_blocks} blocks "
-                    f"of {self.s_block}"
+                    f"{self.total_rows} rows are not {self.thr.shape[0]} "
+                    f"blocks of {self.s_block}"
                 )
             self._theta_cache: dict[int, torch.Tensor] = {}
             self._bits01 = None
@@ -329,7 +443,7 @@ class TorchDeviceDB:
         """K6''s slabs, u8 0/1 in the kernel's tiles (``gemm_slabs``),
         built once."""
         if self._bits01 is None:
-            self._bits01 = gemm_slabs(self.bits_ext, self.n_blocks,
+            self._bits01 = gemm_slabs(self.bits_ext, self.thr.shape[0],
                                       self.s_block, s_pad_for(self.s_block))
         return self._bits01
 
@@ -345,7 +459,10 @@ class TorchDeviceDB:
         excluding the read; for paired rows ``lens`` is max(len1, len2),
         which feeds only the min-length filter.  A sketch DB streams
         single-end over one block only: anything else raises, for its
-        windows would be counted without selection."""
+        windows would be counted without selection.  On a mesh every rank
+        passes the whole batch; K1' hashes the rank's ``d`` slice (JAX
+        ``search_reads_async`` on a mesh, device.py:938-973, with K1' in
+        place of its XLA hash) and every rank returns the whole result."""
         opt = self.opt
         lmax = reads.shape[1]
         lens_t = torch.from_numpy(
@@ -354,12 +471,17 @@ class TorchDeviceDB:
         K = max(lmax - self.k + 1, 1)
         cmin = self.cmin_for(K)
         if self.sketch is not None and (self.screen is not None
-                                        or dedup_values):
+                                        or dedup_values
+                                        or self.mesh is not None):
             raise NotImplementedError(
-                "sketch DBs stream single-end reads over one block only "
-                "(window selection runs nowhere else): paired and "
-                "multi-block sketch searches take the object engine"
+                "sketch DBs stream single-end reads over one block of one "
+                "device only (window selection runs nowhere else): paired, "
+                "multi-block and sharded sketch searches take the object "
+                "engine"
             )
+        if self.mesh is not None:
+            return self._search_reads_sharded(reads, lens_t, cmin, K,
+                                              cand_budget, dedup_values)
         if self.screen is not None:
             outs = hash_loc(
                 reads, self.k, self.s_block, self.max_hash, 1,
@@ -385,6 +507,104 @@ class TorchDeviceDB:
             cand_budget, opt.min_query_len, opt.kmer_dedup_threshold,
             in_dedup=dedup_values, values=outs[2] if dedup_values else None,
         )
+
+    def _search_reads_sharded(self, reads, lens_t, cmin, K, budget,
+                              dedup_values):
+        opt = self.opt
+        d_size, _t, d_index, _ti = mesh_place(self.mesh)
+        n_reads = reads.shape[0]
+        reads = batch_slice(reads, d_size, d_index, 0)
+        lens_t = batch_slice(lens_t, d_size, d_index, 0)
+        if self.screen is not None:
+            if dedup_values:
+                raise NotImplementedError(
+                    "paired rows on a sharded screened DB: the JAX sharded "
+                    "screened step is single-end (ROADMAP A9)")
+            loc, nk, loc_u = hash_loc(
+                reads, self.k, self.s_block, self.max_hash, 1,
+                screen_sigs=self.screen["num_bits"])
+            return self._screened_sharded(loc[:, :, 0], loc_u, nk, lens_t,
+                                          cmin, K, budget, n_reads)
+        outs = hash_loc(reads, self.k, self.total_rows, self.max_hash,
+                        self.num_hashes, values=dedup_values)
+        return sharded_count_tail(
+            self.bits_ext, outs[0], outs[1], lens_t, cmin, self.thr[0],
+            budget, opt.min_query_len, opt.kmer_dedup_threshold, self.mesh,
+            n_reads, in_dedup=dedup_values,
+            values=outs[2] if dedup_values else None,
+        )
+
+    def _screened_sharded(self, loc, loc_u, nk, lens_t, cmin, K, budget,
+                          n_reads):
+        opt = self.opt
+        args = (self.bits_ext, self.screen["u_ext"], loc, loc_u, nk, lens_t,
+                cmin, self.theta_for(K), self.thr, budget, opt.min_query_len,
+                opt.kmer_dedup_threshold)
+        bits01 = self.gemm_slabs() if self.pass2 == "gemm" else None
+        if self.mesh is None:
+            return screened_tail(*args, self.pass2, bits01,
+                                 stats=self.tail_stats)
+        return sharded_screened_tail(*args, self.mesh, n_reads, self.pass2,
+                                     bits01, stats=self.tail_stats)
+
+    def _host_planes(self, planes, fills):
+        """Host arrays [B, ...] -> this rank's ``d`` slices (all of them
+        off a mesh) as int32 tensors on the device."""
+        out = []
+        for a, fill in zip(planes, fills):
+            t = torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32))
+            if self.mesh is not None:
+                d_size, _t, d_index, _ti = mesh_place(self.mesh)
+                t = batch_slice(t, d_size, d_index, fill)
+            out.append(t.to(self.device))
+        return out
+
+    def search_async(self, loc: np.ndarray, nkmers: np.ndarray,
+                     cand_budget: int) -> tuple[np.ndarray, np.ndarray]:
+        """Host Bloom locations loc [B, K, h] of a one-block DB (invalid
+        windows at the sentinel row ``total_rows``) and their counts
+        nkmers [B] -> count_tail's (meta, aux); on a mesh the whole batch
+        on every rank.  The step of JAX ``search_async`` (device.py:
+        1011-1030, ``_make_search_step``): no read is dropped for its
+        length or its k-mer count, and cmin covers nkmers.max()."""
+        if self.n_blocks != 1:
+            raise NotImplementedError(
+                "search_async takes one-block DBs; a screened DB takes "
+                "search_screened_sharded")
+        if loc.shape[1] > LOC_DEDUP:
+            raise ValueError(f"{loc.shape[1]} windows a read overflow the "
+                             "uint16 aux layout")
+        n_reads = loc.shape[0]
+        nk_np = np.minimum(nkmers, 10**9)
+        loc_t, nk, lens = self._host_planes(
+            (loc, nk_np, np.zeros(n_reads)), (self.total_rows, 0, 0))
+        cmin = self.cmin_for(int(nk_np.max(initial=1)))
+        if self.mesh is None:
+            return count_tail(self.bits_ext, loc_t, nk, lens, cmin,
+                              self.thr[0], cand_budget, 0, LOC_DEDUP)
+        return sharded_count_tail(self.bits_ext, loc_t, nk, lens, cmin,
+                                  self.thr[0], cand_budget, 0, LOC_DEDUP,
+                                  self.mesh, n_reads)
+
+    def search_screened_sharded(self, loc: np.ndarray, loc_u: np.ndarray,
+                                nkmers: np.ndarray, lens: np.ndarray,
+                                cand_budget: int
+                                ) -> tuple[np.ndarray, np.ndarray]:
+        """The sharded two-pass screened step on host location planes
+        loc / loc_u [B, K] (sentinels s_block / the union's num_bits) ->
+        screened_tail's (meta, aux) for the whole batch, on every rank
+        (JAX ``search_screened_sharded``, device.py:975-1011), single-end.
+        Off a mesh, ``screened_tail`` on the same planes: the result a
+        mesh's is held to."""
+        if self.screen is None:
+            raise ValueError("search_screened_sharded needs a screened "
+                             "multi-block DB")
+        K = max(int(loc.shape[1]), 1)
+        planes = self._host_planes(
+            (loc, loc_u, np.minimum(nkmers, 10**9), lens),
+            (self.s_block, self.screen["num_bits"], 0, 0))
+        return self._screened_sharded(*planes, self.cmin_for(K), K,
+                                      cand_budget, loc.shape[0])
 
     def _sketch_locations(self, reads: torch.Tensor, lens_t: torch.Tensor):
         """A sketch DB's (loc, nk) in the JAX call order (device.py:671-706):

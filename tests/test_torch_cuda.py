@@ -8,7 +8,9 @@ value plane at single-end and paired row lengths, every modulus path and
 rows too long to stage in shared memory), the count and screened tails,
 single-end and paired (in_dedup), a sketch DB's window selection after
 K1' and the object engine's TorchBlockCounter (K2' on short, wide, folded
-and -g rows), on the card against their CPU runs.  Marked ``cuda``:
+and -g rows), on the card against their CPU runs, and the multi-rank
+dry run on the card (a world of one rank on nccl, two ranks sharing the
+card over gloo) against the single-device run.  Marked ``cuda``:
 they skip without a card and run on the GPU machine with
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
@@ -493,3 +495,16 @@ def test_block_counter_on_card_matches_cpu(cuda, W, h, B, K):
         np.testing.assert_array_equal(
             got, count_matches_numpy(bits, hashes, mask, h))
     assert got[0].sum() > 0
+
+
+@pytest.mark.parametrize("n_ranks,backend", [(1, "nccl"), (2, "gloo")])
+def test_sharded_dryrun_on_card(cuda, n_ranks, backend):
+    """The multi-rank dry run on the card: a world of one rank on nccl
+    (mesh (1, 1)) and two ranks sharing the card over gloo (mesh (1, 2)),
+    every configuration byte-identical to the single-device run on the
+    card and equal to the host oracle."""
+    from kmcp_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    lines = dryrun_multichip(n_ranks, device="cuda:0", backend=backend,
+                             timeout_s=600)
+    assert [ln.split(":")[0] for ln in lines] == [f"mesh(d=1,t={n_ranks})"]
