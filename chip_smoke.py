@@ -123,8 +123,30 @@ raises, exit non-zero):
      above 0; each configuration's walls, launches and summed CUDA-event
      kernel times by rank (not scale-out numbers: the ranks share one
      card).
+ 12. batches in flight (the streamer's flush/drain pipeline, no DB built):
+     (a) wide-131k, screened-131k with pass2 "auto" and "gemm",
+     paired-131k, paired-screened-131k and sketch-minimizer-16k (phases 4,
+     6, 7 and 8's DBs and reads) through ``run_search`` at ``in_flight`` 1,
+     4, 4 and 1 (in turns), each TSV byte-identical to the other depth's and to its
+     phase's plain-version run, every kernel of its path launched; the
+     untimed walls, e2e rates and peak device memory
+     (``max_memory_allocated``) at both depths, in this call; (b) the
+     first 16,384-query batch of every tail (dense, narrow 3-hash, paired
+     dense, screened on K5' and on K6', paired screened, minimizer)
+     flushed under ``torch.cuda.set_sync_debug_mode("error")`` (none may
+     make the host wait), then drained; (c) wide-131k from a candidate
+     budget of 8 with 4 batches in flight: the plain run's bytes, each
+     batch retried at 4x; (d) the card's busy share (the union of its
+     kernel and copy intervals over the wall) in one ``torch.profiler``
+     run of wide-131k at depth 4.
+Phase 3 also times K5' and K6' at the screened tail's padded pair budget
+(a 16,384-read batch's slots, padding pairs of block nb), exact against
+their plain versions there.  The stage-timed reruns of phases 4-8
+synchronise around every stage, which serialises the batches in flight;
+their e2e rates come from the untimed runs.
 Every main-path run sets all four kernels' launch counts to 0 just before
-it and reads them just after (phase 11: every job on every rank).
+it and reads them just after (phase 11: every job on every rank; phase
+12: every run of (a)).
 Then one JSON line of kernel results, the card's name and power limit, and
 the last line ``{"ok": true, "device": {...}}``.
 
@@ -160,6 +182,10 @@ ENGINE_READS = 4096  # phase 9's reads and pairs through the object engine
 GENOME_KMERS = 262_144  # the JAX package's genome-scale query threshold
 
 
+# how the stage-timed reruns' numbers read: each wrapped call is
+# synchronised, which serialises the streamer's batches in flight
+STAGES = ("synchronised host clock around each stage, which serialises the "
+          "batches in flight; s")
 # One NVIDIA H100 SXM (data sheet, dense, at its 700 W limit): HBM rate and
 # the tensor-core rates in bf16 and int8.
 HBM_BYTES_PER_S = 3.35e12
@@ -400,8 +426,10 @@ def phase_pass2(torch, dev) -> dict:
     3,578 rows of random bits, 140 windows per read, 5% of them invalid),
     on 20,480 and 36,864 read-major pairs of a 16,384-read batch (bits of
     density 1/4, so a pair's counts sit near 33); K6' (the same pairs, the
-    same floors) must also equal K5''s counts and mask.  Each pass-2 route
-    is also timed whole, as the tail runs it."""
+    same floors) must also equal K5''s counts and mask.  Each kernel is
+    also held exact and timed on the pairs padded to the screened tail's
+    pair budget (``check_padded``), and each pass-2 route timed whole
+    there, as the tail runs it (``screen.pass2_fixed``)."""
     from kmcp_tpu_torch.search import screen
     from kmcp_tpu_torch.search.device_step import FLOOR_NEVER
     from kmcp_tpu_torch.search.group_count import (
@@ -447,8 +475,14 @@ def phase_pass2(torch, dev) -> dict:
         del counts_p, mask_p
         ms = time_ms(torch, lambda: pair_count(*args, rows_checked=True))
         ms_p = time_ms(torch, lambda: pair_count_plain(*args))
-        route = time_ms(torch, lambda: screen._pass2_pair(
-            bits, loc, pb, pg, cthr, thr, chunk))
+        pad, (pbp, pgp) = check_padded(
+            torch, f"pair_count {label}", "pair", B, nb, pb, pg, counts,
+            mask, lambda b, g, **kw: pair_count(bits, loc, b, g, cthr, thr,
+                                                **kw),
+            lambda b, g: pair_count_plain(bits, loc, b, g, cthr, thr))
+        route = time_ms(torch, lambda: screen.pass2_fixed(
+            "pair", bits, None, loc, pbp, pgp, cthr, thr, s_block, 2 * B,
+            chunk))
         # each pair reads its read's locations and the block rows they hit
         reads_used = torch.unique(pb).numel()
         blocks_used = torch.unique(pg).numel()
@@ -459,9 +493,12 @@ def phase_pass2(torch, dev) -> dict:
         log(f"phase 3 pair_count [{label}] s_block={s_block} W={W} K={Kw}: "
             f"exact (max abs err 0, {n_set} mask words set); kernel "
             f"{ms:.3f} ms (block sort included), plain {ms_p:.3f} ms, bound "
-            f"{bd[0]:.4f} ms ({bd[1]}); route (K5' + compaction) "
+            f"{bd[0]:.4f} ms ({bd[1]}); at the tail's padded pair budget "
+            f"({pad['slots']} slots, {P} real): kernel {pad['ms']:.3f} ms, "
+            f"route (K5' + compaction to a budget of {2 * B} + splice) "
             f"{route:.3f} ms")
-        res["pair_count"].append((label, err, ms, ms_p, bd, route))
+        res["pair_count"].append((label, err, ms, ms_p, bd, route, None,
+                                  pad))
 
         bits01 = gemm_slabs(bits, nb, s_block, S_pad)
         args6 = (bits01, loc, pb, pg, cthr, thr, s_block)
@@ -477,8 +514,15 @@ def phase_pass2(torch, dev) -> dict:
         del want
         ms6 = time_ms(torch, lambda: group_count(*args6, rows_checked=True))
         ms6_p = time_ms(torch, lambda: group_count_plain(*args6))
-        route6 = time_ms(torch, lambda: screen._pass2_gemm(
-            bits01, loc, pb, pg, cthr, thr, s_block, chunk))
+        pad6, (pbp, pgp) = check_padded(
+            torch, f"group_count {label}", "gemm", B, nb, pb, pg, *got,
+            lambda b, g, **kw: group_count(bits01, loc, b, g, cthr, thr,
+                                           s_block, **kw),
+            lambda b, g: group_count_plain(bits01, loc, b, g, cthr, thr,
+                                           s_block))
+        route6 = time_ms(torch, lambda: screen.pass2_fixed(
+            "gemm", None, bits01, loc, pbp, pgp, cthr, thr, s_block,
+            pad6["budget"], chunk))
         # the dense product of the real pairs, whatever pads them
         flops = 2.0 * P * S_pad * 32 * W  # u8 x u8 -> s32 operations
         slab = S_pad * 32 * W  # u8 bytes of one block's slab
@@ -491,13 +535,49 @@ def phase_pass2(torch, dev) -> dict:
             f"kernel {ms6:.3f} ms ({flops / ms6 / 1e9:.1f} TOP/s; block "
             f"sort included), plain {ms6_p:.3f} ms, bound {bd[0]:.4f} ms "
             f"({bd[1]}), torch._grouped_mm bf16 {lib_ms:.3f} ms (max abs "
-            f"err {lib_err} vs K6'); route (K6' + compaction) "
-            f"{route6:.3f} ms")
+            f"err {lib_err} vs K6'); at the tail's padded pair budget "
+            f"({pad6['slots']} slots, {P} real; candidate budget "
+            f"{pad6['budget']}): kernel {pad6['ms']:.3f} ms, route (K6' + "
+            f"compaction + splice) {route6:.3f} ms")
         res["group_count"].append((label, err6, ms6, ms6_p, bd, route6,
-                                   lib_ms))
+                                   lib_ms, pad6))
         del bits, bits01, got, counts, mask
         torch.cuda.empty_cache()
     return res
+
+
+def check_padded(torch, label, pass2, B, nb, pb, pg, counts, mask, kernel,
+                 plain) -> tuple[dict, tuple]:
+    """A pass-2 kernel on the read-major pairs padded to the slots the
+    screened tail gives a 16,384-read batch (``screen.pair_budget_for`` at
+    the first candidate budget, 2 B, or at the first 4x retry's that holds
+    the pairs), padding as ``screen.pair_list`` leaves it (pb = B - 1, pg =
+    nb): its mask must equal the plain version's (0 on padding rows) and
+    its real rows the unpadded launch's counts and mask -> ({"pairs",
+    "slots", "budget", "ms": the padded launch's median}, (pb, pg)
+    padded)."""
+    from kmcp_tpu_torch.search import screen
+
+    P = pb.shape[0]
+    budget = 2 * B
+    while screen.pair_budget_for(B, nb, budget, pass2) < P:
+        budget *= 4
+    slots = screen.pair_budget_for(B, nb, budget, pass2)
+    pbp = torch.cat([pb, pb.new_full((slots - P,), B - 1)])
+    pgp = torch.cat([pg, pg.new_full((slots - P,), nb)])
+    got = kernel(pbp, pgp)
+    want = plain(pbp, pgp)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(torch, got[1], want[1]),
+              max_abs_err(torch, got[0][:P], want[0][:P]),
+              max_abs_err(torch, got[0][:P], counts),
+              max_abs_err(torch, got[1][:P], mask))
+    if err or got[1][P:].any():
+        raise AssertionError(f"{label} padded to {slots}: max abs err {err}")
+    del got, want
+    ms = time_ms(torch, lambda: kernel(pbp, pgp, rows_checked=True))
+    return {"pairs": P, "slots": slots, "budget": budget, "ms": ms}, (pbp,
+                                                                      pgp)
 
 
 def grouped_mm_yardstick(torch, bits01, loc, pb, pg, S_pad, want
@@ -801,12 +881,12 @@ def phase_main_path(torch, dev, label: str, db: str, reads: str,
                 raise AssertionError(f"{label} timed: TSV differs")
         steady = wall - sum(acc.get(k, 0.0) for k in (
             "engine_open", "engine_check", "streamer_setup"))
-        log(f"{label} stages (synchronised host clock, s): "
+        log(f"{label} stages ({STAGES}): "
             + ", ".join(f"{k} {v:.4f}" for k, v in acc.items())
             + f"; run_search wall {wall:.3f}; steady {total / steady:.1f} "
             "reads/s (without engine open and streamer set-up)")
     return {"launches": launches, "device_rps": total / dev_s,
-            "retries": stats["retries"], "out": out_dev}
+            "retries": stats["retries"], "out": out_dev, "ref": out_ref}
 
 
 @contextlib.contextmanager
@@ -815,10 +895,12 @@ def stage_timers(torch, acc: dict):
     the functions it calls: the DB set-up (host arrays, of which the union
     screens' packing, then the upload; the engine's open and check before
     it, and the streamer set-up around it), the device hash, a sketch
-    DB's window selection, the paired
-    mode's dedup, the dense tail and its K2' launches, or the screened
-    pass 1, pass-2 kernels,
-    whole pass-2 routes and packing with its D2H copy, and the TSV writer;
+    DB's window selection, the paired mode's dedup, the dense tail with
+    its K2' launches and compaction, or the screened pass 1, pair list,
+    pass-2 kernels and whole pass-2 routes, the packing, the dispatch of
+    the D2H copy, and the TSV writer.  The synchronisation around every
+    wrapped call serialises the streamer's batches in flight, so a timed
+    run's wall is not the pipeline's: e2e rates come from untimed runs;
     on the object engine's route its host hashing and uniquing, the
     counter (location derivation and padding; the device part, its K2'
     launches among it; the rest of the call, the D2H copy of the counts),
@@ -837,16 +919,19 @@ def stage_timers(torch, acc: dict):
                (device.TorchDeviceDB, "_init", "db_upload"),
                (device, "hash_loc", "hash"),
                (device, "sketch_transform", "sketch_select"),
-               (device, "count_tail", "dense_tail"),
+               (device, "count_tail_async", "dense_tail"),
                (device_step, "count_mask", "dense_count_kernel"),
+               (device_step, "compact_candidates", "dense_compaction"),
                (device_step, "dedup_planes", "dedup"),
                (screen, "dedup_planes", "dedup"),
-               (screen, "active_pairs", "pass1"),
+               (screen, "active_mask", "pass1"),
+               (screen, "pair_list", "pair_list"),
                (screen, "pair_count", "pass2_kernel"),
                (screen, "group_count", "pass2_kernel"),
-               (screen, "_pass2_pair", "pass2_route"),
-               (screen, "_pass2_gemm", "pass2_route"),
-               (screen, "pack_result_split", "pack_d2h"),
+               (screen, "pass2_fixed", "pass2_route"),
+               (device_step, "pack_result", "pack"),
+               (screen, "pack_result_split", "pack"),
+               (device, "_copy_async", "d2h"),
                (TorchStreamSearcher, "_write_native", "writer"),
                (engine, "hash_reads_batch", "engine_hash"),
                (engine, "unique_sorted", "engine_unique"),
@@ -949,11 +1034,11 @@ def phase_screened(torch, dev, ks: str, reads: str, n_source: int) -> dict:
         acc["compaction"] = (acc.pop("pass2_route")
                              - acc.get("pass2_kernel", 0.0))
         breakdown[p2] = acc
-        log(f"phase 6 stages {p2} (synchronised host clock, s): "
+        log(f"phase 6 stages {p2} ({STAGES}): "
             + ", ".join(f"{k} {v:.4f}" for k, v in acc.items())
             + f"; run_search wall {run['wall']:.3f}")
     return {"launches": {p: r["launches"] for p, r in runs.items()},
-            "breakdown": breakdown, "db": db}
+            "breakdown": breakdown, "db": db, "ref": ref["out"]}
 
 
 def phase_paired(torch, dev, label: str, db: str, r1: str, r2: str,
@@ -1003,12 +1088,13 @@ def phase_paired(torch, dev, label: str, db: str, r1: str, r2: str,
                                                              0.0)
     steady = timed["wall"] - sum(acc.get(k, 0.0) for k in (
         "engine_open", "engine_check", "streamer_setup"))
-    log(f"{tag} stages (synchronised host clock, s): "
+    log(f"{tag} stages ({STAGES}): "
         + ", ".join(f"{k} {v:.4f}" for k, v in acc.items())
         + f"; run_search wall {timed['wall']:.3f}; steady "
         f"{N_READS / steady:.1f} pairs/s (without engine open and streamer "
         "set-up)")
-    return {"launches": la, "breakdown": acc, "out": run["out"]}
+    return {"launches": la, "breakdown": acc, "out": run["out"],
+            "ref": ref["out"]}
 
 
 def link_genomes(gdir: str, src: str, indices) -> str:
@@ -1049,6 +1135,32 @@ def check_plain(tag: str, run: dict, ref: dict, route: str,
         raise AssertionError(f"{tag}: launches {la}")
 
 
+def sketch_db(kind: str, gdir: str) -> str:
+    """A "minimizer" (compute -W 5) or "syncmer" (-S 11) DB of the genomes
+    in ``gdir`` x 64 chunks, k = 21, one block (-n 1 -f 0.3 --tpu-native),
+    through the port's command line."""
+    from kmcp_tpu_torch.cli import main as cli
+
+    flag = {"minimizer": ["-W", "5"], "syncmer": ["-S", "11"]}[kind]
+    ks = os.path.join(SCRATCH, "sketch", kind, "ks")
+    db = os.path.join(SCRATCH, "sketch", kind, "db")
+    if cli(["-q", "compute", "-I", gdir, "-O", ks, "-k", str(K), *flag,
+            "-n", str(WIDE_CHUNKS), "-l", str(READ_LEN), "--force"]):
+        raise RuntimeError(f"compute of the {kind} DB failed")
+    if cli(["-q", "index", "-I", ks, "-O", db, "-n", "1", "-f", "0.3",
+            "--tpu-native", "--native-block-targets",
+            str(SKETCH_GENOMES * WIDE_CHUNKS), "--force"]):
+        raise RuntimeError(f"index of the {kind} DB failed")
+    return db
+
+
+def sketch_genomes(genome_src: str, pool) -> str:
+    """Phase 8's genome directory: SKETCH_GENOMES of phase 4's genomes,
+    its 40 source genomes among them."""
+    return link_genomes(os.path.join(SCRATCH, "sketch", "genomes"),
+                        genome_src, genome_subset(pool, SKETCH_GENOMES))
+
+
 def phase_sketch(torch, dev, genome_src: str, pool, reads: str,
                  n_source: int) -> dict:
     """Phase 8: a minimizer (compute -W 5) and a closed-syncmer (-S 11) DB
@@ -1058,22 +1170,11 @@ def phase_sketch(torch, dev, genome_src: str, pool, reads: str,
     for syncmers, the window selection, the dense tail) against the same
     path with the kernels bound to their plain versions on the card; then
     a stage-timed rerun."""
-    from kmcp_tpu_torch.cli import main as cli
-
-    gdir = link_genomes(os.path.join(SCRATCH, "sketch", "genomes"),
-                        genome_src, genome_subset(pool, SKETCH_GENOMES))
-    out = {"launches": {}, "breakdown": {}}
-    for kind, flag in (("minimizer", ["-W", "5"]), ("syncmer", ["-S", "11"])):
+    gdir = sketch_genomes(genome_src, pool)
+    out = {"launches": {}, "breakdown": {}, "db": {}, "ref": {}}
+    for kind in ("minimizer", "syncmer"):
         t0 = time.time()
-        ks = os.path.join(SCRATCH, "sketch", kind, "ks")
-        db = os.path.join(SCRATCH, "sketch", kind, "db")
-        if cli(["-q", "compute", "-I", gdir, "-O", ks, "-k", str(K), *flag,
-                "-n", str(WIDE_CHUNKS), "-l", str(READ_LEN), "--force"]):
-            raise RuntimeError(f"compute of the {kind} DB failed")
-        if cli(["-q", "index", "-I", ks, "-O", db, "-n", "1", "-f", "0.3",
-                "--tpu-native", "--native-block-targets",
-                str(SKETCH_GENOMES * WIDE_CHUNKS), "--force"]):
-            raise RuntimeError(f"index of the {kind} DB failed")
+        db = sketch_db(kind, gdir)
         build_s = time.time() - t0
 
         def search(tag: str) -> dict:
@@ -1112,13 +1213,15 @@ def phase_sketch(torch, dev, genome_src: str, pool, reads: str,
             raise AssertionError(f"{tag} timed: TSV differs")
         steady = timed["wall"] - sum(acc.get(k, 0.0) for k in (
             "engine_open", "engine_check", "streamer_setup"))
-        log(f"{tag} stages (synchronised host clock, s): "
+        log(f"{tag} stages ({STAGES}): "
             + ", ".join(f"{k} {v:.4f}" for k, v in acc.items())
             + f"; run_search wall {timed['wall']:.3f}; steady "
             f"{N_READS / steady:.1f} reads/s (without engine open and "
             "streamer set-up)")
         out["launches"][kind] = la
         out["breakdown"][kind] = acc
+        out["db"][kind] = db
+        out["ref"][kind] = ref["out"]
     return out
 
 
@@ -1711,6 +1814,194 @@ def phase_sharded(torch, dev, smi: str, wide_db: str, narrow_db: str,
     return {"launches": launches}
 
 
+# ------------------------------------------------------------- phase 12
+# batches in flight: one at a time and the JAX default, in turns
+DEPTHS = (1, 4, 4, 1)
+
+
+def busy_share(trace_path: str, wall_s: float) -> tuple:
+    """(device busy seconds: the union of the kernel, memcpy and memset
+    intervals of a torch.profiler chrome trace; the kernels' summed
+    seconds; the busy share of ``wall_s``), or None when the trace holds no
+    device event."""
+    with open(trace_path) as f:
+        events = json.load(f).get("traceEvents", [])
+    spans, kernel_us = [], 0.0
+    for e in events:
+        cat = e.get("cat", "")
+        if e.get("ph") != "X" or cat not in ("kernel", "gpu_memcpy",
+                                             "gpu_memset"):
+            continue
+        spans.append((float(e["ts"]), float(e["ts"]) + float(e["dur"])))
+        if cat == "kernel":
+            kernel_us += float(e["dur"])
+    if not spans:
+        return None
+    busy, end = 0.0, -1.0
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e6, kernel_us / 1e6, busy / 1e6 / wall_s
+
+
+def first_batch(reads, k: int) -> list:
+    """The streamer's first 16,384 queries of a FASTQ, or of the pairs of
+    two (``reads`` a pair of paths)."""
+    from itertools import islice
+
+    from kmcp_tpu_torch.commands.search import iter_queries
+
+    files, r1, r2 = (([], *reads) if isinstance(reads, tuple)
+                     else ([reads], None, None))
+    return list(islice(iter_queries(files, r1, r2, False, False, "", k),
+                       16_384))
+
+
+def phase_inflight(torch, dev, smi: str, cells: list, wide: tuple,
+                   flushes: list) -> dict:
+    """Phase 12: batches in flight on the card.  (a) every cell of
+    ``cells`` (name, DB, run_search's query arguments, pass2, the plain
+    run's TSV, unit) through ``run_search`` at depths 1, 4, 4, 1, each TSV
+    byte-identical to the other depth's and to the plain versions' run,
+    every kernel of its path launched; its wall, e2e rate and peak device
+    memory.  (b) one batch of every tail of ``flushes`` (label, DB, pass2,
+    the reads file or the pair of files) flushed under
+    ``torch.cuda.set_sync_debug_mode("error")``, then drained.  (c) the
+    wide cell with a starting budget of 8 and 4 batches in flight: the
+    plain run's bytes, with retries.  (d) the card's busy share in one
+    torch.profiler run of the wide cell at depth 4."""
+    import io
+
+    from kmcp_tpu_torch.commands.search import HEADER, write_stats
+    from kmcp_tpu_torch.index.format import find_db_dirs
+    from kmcp_tpu_torch.search import stream
+    from kmcp_tpu_torch.search.engine import SearchEngine, SearchOptions
+
+    out = {"launches": {}, "walls": {}}
+    need = {"pair": ["pair_count"], "gemm": ["group_count"]}
+    for name, db, query, pass2, ref, unit in cells:
+        with open(ref, "rb") as f:
+            want = f.read()
+        walls = {1: [], 4: []}
+        for turn, depth in enumerate(DEPTHS):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            run = searched(db, os.path.join(SCRATCH, f"inflight.{name}.{turn}"
+                                            ".tsv"), device=dev, pass2=pass2,
+                           in_flight=depth, **query)
+            peak = torch.cuda.max_memory_allocated(dev)
+            la, st = run["launches"], run["stats"]
+            kernels = ["hash_loc", "count_mask"] + need.get(
+                st["pass2"] or "", [])
+            if run["tsv"] != want:
+                raise AssertionError(f"phase 12 {name} depth {depth}: TSV "
+                                     "differs from the plain run")
+            idle = dev.type == "cuda" and min(la[k] for k in kernels) == 0
+            if idle or any(la[k] for k in la if k not in kernels):
+                raise AssertionError(f"phase 12 {name} depth {depth}: "
+                                     f"launches {la}")
+            if st["in_flight"] != depth or st["slow_rows"]:
+                raise AssertionError(f"phase 12 {name}: stats {st}")
+            walls[depth].append(run["wall"])
+            out["launches"][f"phase 12 {name} d{depth} t{turn}"] = la
+            log(f"phase 12 (a) {name} depth {depth}: TSV byte-identical to "
+                f"the plain run and the other depth ({len(want)} bytes); "
+                f"run_search wall {run['wall']:.3f} s, "
+                f"{N_READS / run['wall']:.1f} {unit}/s e2e (untimed), peak "
+                f"device memory {peak / 2**20:.1f} MiB, 4x retries "
+                f"{st['retries']}, launches {la}")
+        out["walls"][name] = walls
+        log(f"phase 12 (a) {name}: walls at depth 1 "
+            f"{', '.join(f'{w:.3f}' for w in walls[1])} s, at depth 4 "
+            f"{', '.join(f'{w:.3f}' for w in walls[4])} s (turns 1, 4, 4, "
+            f"1); depth 4 / depth 1 of the sums "
+            f"{sum(walls[4]) / sum(walls[1]):.3f} ({smi})")
+
+    # (b) one batch of every tail flushed without the host waiting
+    sts, states = [], []
+    for label, db, pass2, reads in flushes:
+        paired = isinstance(reads, tuple)
+        opt = SearchOptions(paired_fpr_buf=paired)
+        eng = SearchEngine(find_db_dirs(db), opt, dev)
+        sts.append(stream.TorchStreamSearcher(eng, dev, pass2))
+        states.append((label, first_batch(reads, max(eng.dbs[0].info.ks)),
+                       paired))
+    pending = []
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for st, (label, batch, paired) in zip(sts, states):
+            pending.append(st._flush(batch, 16_384, 0, paired))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for st, state, (label, _b, _p) in zip(sts, pending, states):
+        sink = io.StringIO()
+        fmt = (stream._fmt_ratio_memo(), stream._fmt_ratio_memo(), {})
+        matched = st._drain(state, sink, fmt)
+        if not matched:
+            raise AssertionError(f"phase 12 (b) {label}: no read matched")
+    log(f"phase 12 (b): one 16,384-query batch of each tail ("
+        + ", ".join(label for label, *_ in flushes) + ") flushed under "
+        "torch.cuda.set_sync_debug_mode('error') with no error, then "
+        "drained")
+    del sts, states, pending
+    torch.cuda.empty_cache()
+
+    # (c) candidate overflow with 4 batches in flight
+    name, db, path, ref = wide
+    query, pass2 = {"files": [path]}, "auto"
+    eng = SearchEngine(find_db_dirs(db), SearchOptions(), dev)
+    st = stream.TorchStreamSearcher(eng, dev, pass2, in_flight=4)
+    from kmcp_tpu_torch.commands.search import iter_queries
+
+    sink = io.StringIO()
+    sink.write(HEADER)
+    slots = stream.SLOTS_PER_READ
+    stream.SLOTS_PER_READ = 8 / 16_384  # 8 slots for a 16,384-read batch
+    try:
+        t0 = time.time()
+        total, matched = st.run(iter_queries([path], None, None, False,
+                                             False, "",
+                                             max(eng.dbs[0].info.ks)), sink)
+        wall = time.time() - t0
+    finally:
+        stream.SLOTS_PER_READ = slots
+    write_stats(sink, total, matched)
+    with open(ref, "rb") as f:
+        if sink.getvalue().encode() != f.read():
+            raise AssertionError("phase 12 (c): TSV differs at budget 8")
+    if st.retries < 4:
+        raise AssertionError(f"phase 12 (c): {st.retries} retries")
+    log(f"phase 12 (c) {name}: a starting budget of 8 with 4 batches in "
+        f"flight: the plain run's bytes, {st.retries} 4x retries, "
+        f"{wall:.3f} s")
+    del st, eng
+
+    # (d) the card's busy share, one profiled run at depth 4
+    from torch.profiler import ProfilerActivity, profile
+
+    trace = os.path.join(SCRATCH, "inflight.trace.json")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        searched(db, os.path.join(SCRATCH, "inflight.profiled.tsv"),
+                 device=dev, pass2=pass2, in_flight=4, **query)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    prof.export_chrome_trace(trace)
+    share = busy_share(trace, wall)
+    if share is None:
+        log(f"phase 12 (d) {name}: the profiler saw no device event: busy "
+            "share not measured")
+    else:
+        log(f"phase 12 (d) {name} depth 4 under torch.profiler: wall "
+            f"{wall:.3f} s, device busy {share[0]:.4f} s (kernels "
+            f"{share[1]:.4f} s), busy share {share[2]:.4f} ({smi})")
+    out["busy"] = share
+    return out
+
+
 def main() -> int:
     t_start = time.time()
     import torch
@@ -1800,6 +2091,31 @@ def main() -> int:
     sharded = phase_sharded(torch, dev, smi, wide_db, narrow_db,
                             screened["db"], wide_reads, reads)
     walls["11 sharded"] = time.time() - t0
+    t0 = time.time()
+    single, pairs = {"files": [wide_reads]}, {"read1": pair_files[0],
+                                              "read2": pair_files[1]}
+    inflight = phase_inflight(
+        torch, dev, smi,
+        [("wide-131k", wide_db, single, "auto", wide["ref"], "reads"),
+         ("screened-131k auto", screened["db"], single, "auto",
+          screened["ref"], "reads"),
+         ("screened-131k gemm", screened["db"], single, "gemm",
+          screened["ref"], "reads"),
+         ("paired-131k", wide_db, pairs, "auto", paired["dense"]["ref"],
+          "pairs"),
+         ("paired-screened-131k", screened["db"], pairs, "auto",
+          paired["screened"]["ref"], "pairs"),
+         ("sketch-minimizer-16k", sketch["db"]["minimizer"], single, "auto",
+          sketch["ref"]["minimizer"], "reads")],
+        ("wide-131k", wide_db, wide_reads, wide["ref"]),
+        [("dense", wide_db, "auto", wide_reads),
+         ("narrow 3-hash", narrow_db, "auto", reads),
+         ("paired dense", wide_db, "auto", pair_files),
+         ("screened pair", screened["db"], "pair", wide_reads),
+         ("screened gemm", screened["db"], "gemm", wide_reads),
+         ("paired screened", screened["db"], "auto", pair_files),
+         ("sketch", sketch["db"]["minimizer"], "auto", wide_reads)])
+    walls["12 in flight"] = time.time() - t0
     for name, w in walls.items():
         log(f"phase {name}: {w:.1f} s")
 
@@ -1826,7 +2142,8 @@ def main() -> int:
                       for p, n in sketch["launches"].items()},
                    **{f"phase 9 {p}": n[name]
                       for p, n in engine["launches"].items()},
-                   **{p: n[name] for p, n in sharded["launches"].items()}}
+                   **{p: n[name] for p, n in sharded["launches"].items()},
+                   **{p: n[name] for p, n in inflight["launches"].items()}}
 
         def timed(r) -> dict:
             # only K6' has a one-call library counterpart; K1''s ms is the
@@ -1836,6 +2153,8 @@ def main() -> int:
                    "library_ms": r[6] if len(r) > 6 else None}
             if name == "hash_loc":
                 out["call_ms"] = r[5]
+            if len(r) > 7:  # at the screened tail's padded pair budget
+                out["padded"] = r[7]
             return out
 
         entry = {

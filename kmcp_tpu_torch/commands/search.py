@@ -115,16 +115,21 @@ def run_search(
     stats: dict | None = None,
     pass2: str = "auto",
     batch_queries: int = 8192,
+    in_flight: int = 4,
 ) -> tuple[int, int]:
     """Search reads, the pairs of ``read1`` and ``read2``, or with
     ``whole_file`` whole files, against ``db_dir`` on ``device``; returns
     (total, matched).  ``pass2`` picks the screened pass-2 kernel of a
-    multi-block DB ("pair", "gemm" or "auto").  ``stats``, when given,
-    receives ``route``: "stream" or "engine"; for "stream" also the
-    streamer's ``slow_rows`` and ``retries``, the DB's Bloom ``rows``, row
-    ``words`` and ``n_blocks``, the pass-2 kernel that ran (``pass2``,
-    None for one block), the union screen's ``union_rows`` and the active
-    (read, block) ``pairs`` of pass 2 (both 0 for one block)."""
+    multi-block DB ("pair", "gemm" or "auto"); ``in_flight`` is the
+    streamer's depth, the batches it keeps on the card before it drains
+    the oldest (the JAX streamer's 4; no command-line flag sets it, as in
+    kmcp_tpu).  ``stats``, when given, receives ``route``: "stream" or
+    "engine"; for "stream" also the streamer's ``slow_rows``, ``retries``
+    and ``in_flight``, the DB's Bloom ``rows``, row ``words`` and
+    ``n_blocks``, the pass-2 kernel that ran (``pass2``, None for one
+    block), the union screen's ``union_rows`` and the active (read, block)
+    ``pairs`` of pass 2 (both 0 for one block), read once the run is
+    over."""
     paired = bool(read1 and read2)
     # the query-FPR cache's size follows the mode (fpr.py)
     opt = dataclasses.replace(opt or SearchOptions(), paired_fpr_buf=paired)
@@ -158,8 +163,8 @@ def run_search(
             file=sys.stderr,
         )
     t0 = time.time()
-    streamer = (TorchStreamSearcher(engine, dev, pass2) if route == "stream"
-                else None)
+    streamer = (TorchStreamSearcher(engine, dev, pass2, in_flight)
+                if route == "stream" else None)
     queries = iter_queries(files or [], read1, read2, whole_file,
                            use_filename, query_id, max(engine.dbs[0].info.ks))
     out = sys.stdout if out_file == "-" else xopen(out_file, "wt")
@@ -192,5 +197,6 @@ def run_search(
                 rows=ddb.total_rows, words=ddb.w, n_blocks=ddb.n_blocks,
                 pass2=ddb.pass2,
                 union_rows=ddb.screen["num_bits"] if ddb.screen else 0,
-                pairs=ddb.tail_stats["pairs"] if ddb.screen else 0)
+                pairs=int(ddb.tail_stats["pairs"]) if ddb.screen else 0,
+                in_flight=streamer.in_flight)
     return total, matched

@@ -567,10 +567,11 @@ cudaError_t launch(const uint8_t* slabs, int n_blocks, int NT, int n_k,
 // tiles; NT = ceil(T / 256)); loc int32 [B, K] (rows in the block modulus,
 // sentinel s_block); pb int32 [P]; order int32 [P] and seg int32
 // [nb + 1] (the pairs sorted by block, block g's at order[seg[g] ..
-// seg[g+1]]); n_tiles a bound of the pair tiles (P / 128 + min(nb, P) for
-// the tiles of 128 pairs); cthr int32 [B]; thr int32 [nb, T]; counts int32
-// [P, T]; mask int32/uint32 [P, T / 32].  Returns the CUDA error of the
-// launch.
+// seg[g+1]]; padding pairs, of block nb, sort past seg[nb] and fall in no
+// tile, so their rows are not written); n_tiles a bound of the pair tiles
+// (P / 128 + min(nb, P) for the tiles of 128 pairs); cthr int32 [B]; thr
+// int32 [nb, T]; counts int32 [P, T]; mask int32/uint32 [P, T / 32].
+// Returns the CUDA error of the launch.
 extern "C" int kmcp_group_count(const void* slabs, int n_blocks, int NT,
                                 int n_k, int T, int s_block, const void* loc,
                                 int K, const void* pb, const void* order,

@@ -74,10 +74,11 @@ pair_count_slice(const uint32_t* __restrict__ bits, int W, int s_block,
       slice::PairRows{order, pb}, smem);
 }
 
+// A padding pair (block n_blocks) gathers no row and writes a zero mask word.
 template <int NL>
 __global__ void __launch_bounds__(GATHER_THREADS)
 pair_count_gather(const uint32_t* __restrict__ bits, int W, int s_block,
-                  long long sentinel_row, const int32_t* __restrict__ loc,
+                  int n_blocks, const int32_t* __restrict__ loc,
                   int K, const int32_t* __restrict__ pb,
                   const int32_t* __restrict__ pg, int P,
                   const int32_t* __restrict__ cthr,
@@ -89,9 +90,13 @@ pair_count_gather(const uint32_t* __restrict__ bits, int W, int s_block,
   const int w = (int)(g % W);
   const int b = __ldg(pb + p);
   const int blk = __ldg(pg + p);
+  if (blk >= n_blocks) {
+    mask[g] = 0;
+    return;
+  }
   const int32_t* lb = loc + (size_t)b * K;
   const uint32_t* slab = bits + (size_t)blk * s_block * W + w;
-  const uint32_t* sentinel = bits + (size_t)sentinel_row * W + w;
+  const uint32_t* sentinel = bits + (size_t)n_blocks * s_block * W + w;
 
   CsaCounter<NL> acc;
   acc.init();
@@ -150,8 +155,8 @@ cudaError_t launch(const uint32_t* bits, int W, int n_blocks, int s_block,
     const long long n = (long long)P * W;
     const long long blocks = (n + GATHER_THREADS - 1) / GATHER_THREADS;
     pair_count_gather<NL><<<(unsigned)blocks, GATHER_THREADS, 0, stream>>>(
-        bits, W, s_block, (long long)n_blocks * s_block, loc, K, pb, pg, P,
-        cthr, thr, counts, mask);
+        bits, W, s_block, n_blocks, loc, K, pb, pg, P, cthr, thr, counts,
+        mask);
   }
   return cudaGetLastError();
 }
@@ -160,11 +165,14 @@ cudaError_t launch(const uint32_t* bits, int W, int n_blocks, int s_block,
 
 // bits int32/uint32 [nb * s_block + 1, W] (row nb * s_block all zero); loc
 // int32 [B, K] (rows in the block modulus, sentinel s_block); pb, pg int32
-// [P]; order int32 [P] (the pairs sorted by block, stably) and seg int32
-// [nb + 1] (block g's pairs are order[seg[g] .. seg[g+1]]), read only by
-// the slice variant (kmcp_pair_count_variant == 1); cthr int32 [B]; thr
-// int32 [nb, 32 W]; counts int32 [P, 32 W] (16-byte aligned); mask
-// int32/uint32 [P, W].  Returns the CUDA error of the launch.
+// [P] (pg == nb marks a padding pair: no variant reads a row for it, and
+// its counts row is not written); order int32 [P] (the pairs sorted by
+// block, stably, padding last) and seg int32 [nb + 1] (block g's pairs are
+// order[seg[g] .. seg[g+1]]), read only by the slice variant
+// (kmcp_pair_count_variant == 1); cthr int32 [B]; thr int32 [nb, 32 W];
+// counts int32 [P, 32 W] (16-byte aligned); mask int32/uint32 [P, W],
+// zeroed by the caller (the slice variant writes the rows of real pairs
+// only).  Returns the CUDA error of the launch.
 extern "C" int kmcp_pair_count(const void* bits, int W, int n_blocks,
                                int s_block, const void* loc, int K,
                                const void* pb, const void* pg, int P,

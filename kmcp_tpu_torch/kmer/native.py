@@ -171,15 +171,19 @@ def scan(buf: bytes | np.ndarray, k: int, canonical: bool = True,
     return out, valid.view(bool)
 
 
-def pack_rows(reads: list[bytes], lens: np.ndarray, stride: int):
+def pack_rows(reads: list[bytes], lens: np.ndarray, stride: int,
+              out: np.ndarray | None = None):
     """Pack reads into a zero-padded row-major [B, stride] uint8 matrix
-    (the device batch layout)."""
+    (the device batch layout), into ``out`` when given (C-contiguous)."""
     lib = get_lib()
     B = len(reads)
     concat = b"".join(reads)
     offs = np.zeros(B + 1, dtype=np.int64)
     np.cumsum(np.asarray(lens, dtype=np.int64), out=offs[1:])
-    out = np.empty((B, stride), dtype=np.uint8)
+    if out is None:
+        out = np.empty((B, stride), dtype=np.uint8)
+    elif out.shape != (B, stride) or not out.flags.c_contiguous:
+        raise ValueError(f"out must be C-contiguous [{B}, {stride}]")
     lib.kt_pack_rows(
         concat,
         offs.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),

@@ -47,16 +47,38 @@ def _check(bits, loc, cthr, thr):
         )
 
 
+def check_range(lo: int, hi: int, n_rows: int):
+    """Raise unless rows lo..hi lie in 0..n_rows-1."""
+    if lo < 0 or hi >= n_rows:
+        raise ValueError(f"loc holds rows {lo}..{hi} outside 0..{n_rows - 1}")
+
+
+def row_range(loc: torch.Tensor) -> torch.Tensor:
+    """(min, max) of ``loc`` as an int32 [2] tensor on its device ([0, 0]
+    when empty), computed without waiting for the device."""
+    if not loc.numel():
+        return torch.zeros(2, dtype=torch.int32, device=loc.device)
+    return torch.stack(torch.aminmax(loc)).to(torch.int32)
+
+
+def defer_rows(loc: torch.Tensor, n_rows: int
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(loc clamped into 0..n_rows-1, loc's ``row_range``): what a
+    streaming tail gathers with while its row check waits for the host.
+    The tail carries the range in its result and ``check_range`` raises on
+    it there; meanwhile no kernel reads a row outside the table.  One pass
+    over loc, no device sync."""
+    return loc.clamp(0, n_rows - 1), row_range(loc)
+
+
 def check_rows(loc: torch.Tensor, n_rows: int):
     """Raise unless every row in ``loc`` lies in 0..n_rows-1.  On a CUDA
     tensor this waits for the device, so callers that launch K2' on many
-    slices of one ``loc`` check it once."""
+    slices of one ``loc`` check it once, and the streaming tails defer it
+    (``defer_rows``)."""
     if loc.numel():
-        lo, hi = torch.aminmax(loc)
-        if int(lo) < 0 or int(hi) >= n_rows:
-            raise ValueError(
-                f"loc holds rows {int(lo)}..{int(hi)} outside 0..{n_rows - 1}"
-            )
+        lo, hi = row_range(loc).tolist()
+        check_range(lo, hi, n_rows)
 
 
 def count_mask(bits: torch.Tensor, loc: torch.Tensor, cthr: torch.Tensor,
@@ -68,7 +90,7 @@ def count_mask(bits: torch.Tensor, loc: torch.Tensor, cthr: torch.Tensor,
     counts[b, 32 w + j] >= max(thr[32 w + j], cthr[b])).  A CPU tensor takes
     ``count_mask_plain``; a CUDA tensor launches the kernel or raises.
     ``rows_checked=True`` skips the row-range check (a device sync) for a
-    caller that has run ``check_rows`` on ``loc`` already."""
+    caller that has checked ``loc`` already or clamped it (``defer_rows``)."""
     if bits.device.type == "cpu":
         return count_mask_plain(bits, loc, cthr, thr)
     _check(bits, loc, cthr, thr)

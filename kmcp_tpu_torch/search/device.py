@@ -22,6 +22,17 @@ rank's shard, laid out as the JAX ``DeviceDB(mesh=...)`` lays it
 a multiple of t, or a screened multi-block DB's whole blocks; every search
 entry point then runs the mesh tails (``sharded_count_tail``,
 ``sharded_screened_tail``) on the rank's ``d`` slice of the batch.
+
+``search_reads_async`` is the JAX ``search_reads_pallas`` /
+``search_reads_async`` dispatch (device.py:622, :938): it enqueues K1', the
+tail and the copies of the result into pinned host memory behind a CUDA
+event, and returns a ``SearchHandle`` before the card has finished;
+``SearchHandle.result()`` waits for the event and gives the host arrays.
+``_copy_async`` and ``SearchHandle.result`` are the port's counterparts of
+the JAX streamer's ``_copy_async`` and ``_materialize``
+(kmcp_tpu/search/stream.py:43-62).  On CPU tensors the handle is complete
+when it is made; on a mesh the step waits for the collectives (under gloo
+they cross the host) before its result is copied.
 """
 
 from __future__ import annotations
@@ -31,9 +42,11 @@ import torch
 
 from ..index.format import read_block_union, read_block_union_header
 from .device_step import (
+    TailResult,
     batch_slice,
-    count_tail,
+    count_tail_async,
     global_target_ids,
+    host_result,
     mesh_place,
     sharded_count_tail,
     target_floor,
@@ -43,7 +56,7 @@ from .hash_loc import _U64, hash_loc
 from .screen import (
     PASS2,
     pass2_kernel,
-    screened_tail,
+    screened_tail_async,
     sharded_screened_tail,
 )
 from .sketch_device import sketch_transform
@@ -60,6 +73,49 @@ MESH_SCREEN = ("sharded multi-block DeviceDB needs the block screen "
 # the loc step filters no read by length or k-mer count (JAX
 # device_step.py:892-918): the largest threshold the uint16 layout takes
 LOC_DEDUP = 65534
+
+
+def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array as a tensor on ``device``.  To a CUDA device it goes
+    from pinned memory without blocking: a copy from pageable memory waits
+    for every batch already on the stream."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+class SearchHandle:
+    """A dispatched search step: its ``TailResult`` in host memory and the
+    CUDA event recorded after the copies into it (None when complete)."""
+
+    def __init__(self, res: TailResult, event=None):
+        self.res = res
+        self.event = event
+
+    def result(self) -> tuple[np.ndarray, np.ndarray]:
+        """(meta int32, aux uint16) host arrays, after waiting for the
+        copies and checking the rows the step was given (JAX
+        ``_materialize``, kmcp_tpu/search/stream.py:43-47)."""
+        if self.event is not None:
+            self.event.synchronize()
+        return host_result(self.res)
+
+
+def _copy_async(res: TailResult) -> SearchHandle:
+    """Start the device-to-host copies of a dispatched step's result into
+    pinned memory on the current stream and record an event after them
+    (kmcp_tpu/search/stream.py:50-62); CPU tensors are the result."""
+    if res.meta.device.type != "cuda":
+        return SearchHandle(res)
+    host = []
+    for t in (res.meta, res.aux, res.ranges):
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        h.copy_(t, non_blocking=True)
+        host.append(h)
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(res.meta.device))
+    return SearchHandle(TailResult(*host, res.n_rows), event)
 
 
 def build_cmin_table(n_max: int, min_kmers: int, min_qcov: float,
@@ -389,7 +445,8 @@ class TorchDeviceDB:
                 )
             self._theta_cache: dict[int, torch.Tensor] = {}
             self._bits01 = None
-            self.tail_stats = {"pairs": 0}  # active pairs, all batches
+            # active pairs, all batches: a device scalar once one has run
+            self.tail_stats = {"pairs": 0}
             self.pass2 = self._pick_pass2(pass2)
 
     def _pick_pass2(self, pass2: str) -> str:
@@ -414,10 +471,10 @@ class TorchDeviceDB:
             if self.query_fpr is None:
                 raise KeyError(f"no cmin table for n_max={n_max}")
             opt = self.opt
-            t = torch.from_numpy(build_cmin_table(
+            t = to_device(build_cmin_table(
                 n_max, opt.min_kmers, opt.min_query_cov, opt.max_fpr,
                 self.query_fpr,
-            )).to(self.device)
+            ), self.device)
             self._cmin_cache[n_max] = t
         return t
 
@@ -435,7 +492,7 @@ class TorchDeviceDB:
                 float(self.opt.min_kmers),
                 np.ceil(f * n + 3.0 * np.sqrt(n * f * (1.0 - f))),
             ).astype(np.int32)
-            t = torch.from_numpy(th).to(self.device)
+            t = to_device(th, self.device)
             self._theta_cache[n_max] = t
         return t
 
@@ -450,24 +507,34 @@ class TorchDeviceDB:
     def search_reads(self, reads: torch.Tensor, lens: np.ndarray,
                      cand_budget: int, dedup_values: bool = False
                      ) -> tuple[np.ndarray, np.ndarray]:
+        """``search_reads_async(...).result()``."""
+        return self.search_reads_async(reads, lens, cand_budget,
+                                       dedup_values).result()
+
+    def search_reads_async(self, reads: torch.Tensor, lens: np.ndarray,
+                           cand_budget: int, dedup_values: bool = False
+                           ) -> SearchHandle:
         """reads uint8 [B, lmax] on the device (zero padded ASCII), lens
-        [B] -> (meta int32, aux uint16) host arrays: the flat-id layout of
-        the dense tail (one block) or the split-id layout of the screened
-        tail (device_step.py).  ``dedup_values`` is the paired mode
-        (device.py:622-715, :846-935): K1' also emits the window values and
-        the tail uniques each over-threshold read's windows in place of
-        excluding the read; for paired rows ``lens`` is max(len1, len2),
-        which feeds only the min-length filter.  A sketch DB streams
+        [B] -> a ``SearchHandle`` whose ``result()`` is (meta int32, aux
+        uint16) host arrays: the flat-id layout of the dense tail (one
+        block) or the split-id layout of the screened tail
+        (device_step.py).  Nothing here waits for the card, off a mesh:
+        lens go up from pinned memory, the tails have fixed shapes, and
+        their result comes back behind an event (``_copy_async``).
+        ``dedup_values`` is the paired mode (device.py:622-715, :846-935):
+        K1' also emits the window values and the tail uniques each
+        over-threshold read's windows in place of excluding the read; for
+        paired rows ``lens`` is max(len1, len2), which feeds only the
+        min-length filter.  A sketch DB streams
         single-end over one block only: anything else raises, for its
         windows would be counted without selection.  On a mesh every rank
         passes the whole batch; K1' hashes the rank's ``d`` slice (JAX
         ``search_reads_async`` on a mesh, device.py:938-973, with K1' in
-        place of its XLA hash) and every rank returns the whole result."""
+        place of its XLA hash) and every rank returns the whole result,
+        waited for."""
         opt = self.opt
         lmax = reads.shape[1]
-        lens_t = torch.from_numpy(
-            np.asarray(lens).astype(np.int32)
-        ).to(self.device)
+        lens_t = to_device(np.asarray(lens).astype(np.int32), self.device)
         K = max(lmax - self.k + 1, 1)
         cmin = self.cmin_for(K)
         if self.sketch is not None and (self.screen is not None
@@ -480,14 +547,14 @@ class TorchDeviceDB:
                 "engine"
             )
         if self.mesh is not None:
-            return self._search_reads_sharded(reads, lens_t, cmin, K,
-                                              cand_budget, dedup_values)
+            return _copy_async(self._search_reads_sharded(
+                reads, lens_t, cmin, K, cand_budget, dedup_values))
         if self.screen is not None:
             outs = hash_loc(
                 reads, self.k, self.s_block, self.max_hash, 1,
                 screen_sigs=self.screen["num_bits"], values=dedup_values,
             )
-            return screened_tail(
+            return _copy_async(screened_tail_async(
                 self.bits_ext, self.screen["u_ext"], outs[0][:, :, 0],
                 outs[2], outs[1], lens_t, cmin, self.theta_for(K), self.thr,
                 cand_budget, opt.min_query_len, opt.kmer_dedup_threshold,
@@ -495,18 +562,18 @@ class TorchDeviceDB:
                 self.gemm_slabs() if self.pass2 == "gemm" else None,
                 stats=self.tail_stats, in_dedup=dedup_values,
                 values=outs[3] if dedup_values else None,
-            )
+            ))
         if self.sketch is not None:
             loc, nk = self._sketch_locations(reads, lens_t)
         else:
             outs = hash_loc(reads, self.k, self.total_rows, self.max_hash,
                             self.num_hashes, values=dedup_values)
             loc, nk = outs[0], outs[1]
-        return count_tail(
+        return _copy_async(count_tail_async(
             self.bits_ext, loc, nk, lens_t, cmin, self.thr[0],
             cand_budget, opt.min_query_len, opt.kmer_dedup_threshold,
             in_dedup=dedup_values, values=outs[2] if dedup_values else None,
-        )
+        ))
 
     def _search_reads_sharded(self, reads, lens_t, cmin, K, budget,
                               dedup_values):
@@ -542,8 +609,8 @@ class TorchDeviceDB:
                 opt.kmer_dedup_threshold)
         bits01 = self.gemm_slabs() if self.pass2 == "gemm" else None
         if self.mesh is None:
-            return screened_tail(*args, self.pass2, bits01,
-                                 stats=self.tail_stats)
+            return screened_tail_async(*args, self.pass2, bits01,
+                                       stats=self.tail_stats)
         return sharded_screened_tail(*args, self.mesh, n_reads, self.pass2,
                                      bits01, stats=self.tail_stats)
 
@@ -580,11 +647,12 @@ class TorchDeviceDB:
             (loc, nk_np, np.zeros(n_reads)), (self.total_rows, 0, 0))
         cmin = self.cmin_for(int(nk_np.max(initial=1)))
         if self.mesh is None:
-            return count_tail(self.bits_ext, loc_t, nk, lens, cmin,
-                              self.thr[0], cand_budget, 0, LOC_DEDUP)
-        return sharded_count_tail(self.bits_ext, loc_t, nk, lens, cmin,
-                                  self.thr[0], cand_budget, 0, LOC_DEDUP,
-                                  self.mesh, n_reads)
+            return host_result(count_tail_async(
+                self.bits_ext, loc_t, nk, lens, cmin, self.thr[0],
+                cand_budget, 0, LOC_DEDUP))
+        return host_result(sharded_count_tail(
+            self.bits_ext, loc_t, nk, lens, cmin, self.thr[0], cand_budget, 0,
+            LOC_DEDUP, self.mesh, n_reads))
 
     def search_screened_sharded(self, loc: np.ndarray, loc_u: np.ndarray,
                                 nkmers: np.ndarray, lens: np.ndarray,
@@ -603,8 +671,8 @@ class TorchDeviceDB:
         planes = self._host_planes(
             (loc, loc_u, np.minimum(nkmers, 10**9), lens),
             (self.s_block, self.screen["num_bits"], 0, 0))
-        return self._screened_sharded(*planes, self.cmin_for(K), K,
-                                      cand_budget, loc.shape[0])
+        return host_result(self._screened_sharded(
+            *planes, self.cmin_for(K), K, cand_budget, loc.shape[0]))
 
     def _sketch_locations(self, reads: torch.Tensor, lens_t: torch.Tensor):
         """A sketch DB's (loc, nk) in the JAX call order (device.py:671-706):

@@ -149,11 +149,12 @@ def group_count(bits01: torch.Tensor, loc: torch.Tensor, pb: torch.Tensor,
     T] per-target floor -> (counts int32 [P, T], mask int32 [P, T/32]), as
     ``pair_count``: counts[p, t] = sum over the read's windows of bit t of
     their row in block pg[p], and bit j of mask word w set iff counts[p, 32
-    w + j] >= max(thr[pg[p], 32 w + j], cthr[pb[p]]).  A CPU tensor takes
-    ``group_count_plain``; a CUDA tensor launches the kernel (pairs in
-    tiles of ``TILE``) or raises.  ``rows_checked=True`` skips
-    ``check_pairs`` (device syncs) for a caller that has checked or built
-    the indices itself."""
+    w + j] >= max(thr[pg[p], 32 w + j], cthr[pb[p]]); a padding pair
+    (pg[p] = nb) falls in no tile: mask row 0, counts row unwritten.  A CPU
+    tensor takes ``group_count_plain``; a CUDA tensor launches the kernel
+    (pairs in tiles of ``TILE``) or raises.  ``rows_checked=True`` skips
+    ``check_pairs`` (device syncs) for a caller that has built pb and pg
+    itself and checked or clamped loc (count.py ``defer_rows``)."""
     if bits01.device.type == "cpu":
         return group_count_plain(bits01, loc, pb, pg, cthr, thr, s_block)
     _check(bits01, loc, pb, pg, cthr, thr, s_block)
@@ -165,7 +166,7 @@ def group_count(bits01: torch.Tensor, loc: torch.Tensor, pb: torch.Tensor,
         check_pairs(loc, pb, pg, s_block, nb)
     P, K = pb.shape[0], loc.shape[1]
     counts = torch.empty((P, T), dtype=torch.int32, device=bits01.device)
-    mask = torch.empty((P, T // 32), dtype=torch.int32, device=bits01.device)
+    mask = torch.zeros((P, T // 32), dtype=torch.int32, device=bits01.device)
     if P == 0:
         return counts, mask
     order, seg = block_order(pg, nb)
@@ -192,21 +193,26 @@ def group_count_plain(bits01: torch.Tensor, loc: torch.Tensor,
     """Plain PyTorch version: U by ``build_u`` (sentinel windows on the
     zero row s_block), one float32 matmul per block (TF32 off: it would
     round; float32 sums of these integers are exact below 2^24), then the
-    floors."""
+    floors; padding pairs count 0 and set no bit."""
     _check(bits01, loc, pb, pg, cthr, thr, s_block)
     nb, _NT, KT = bits01.shape[:3]
     check_pairs(loc, pb, pg, s_block, nb)
     T = thr.shape[1]
     P = pb.shape[0]
-    u = build_u(loc[pb.long()], KT * BK)
     counts = torch.zeros((P, T), dtype=torch.int32, device=bits01.device)
+    mask = torch.zeros((P, T // 32), dtype=torch.int32,
+                       device=bits01.device)
+    real = torch.nonzero(pg < nb).squeeze(1)  # padding pairs count nothing
+    b, g_r = pb[real].long(), pg[real].long()
+    u = build_u(loc[b], KT * BK)
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        for g in torch.unique(pg).tolist():
-            r = torch.nonzero(pg == g).squeeze(1)
-            counts[r] = (u[r].float() @ slab_dense(bits01, g)[:, :T]).to(
-                torch.int32)
+        for g in torch.unique(g_r).tolist():
+            r = torch.nonzero(g_r == g).squeeze(1)
+            counts[real[r]] = (u[r].float() @ slab_dense(bits01, g)[:, :T]
+                               ).to(torch.int32)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
-    return counts, floor_mask(counts, thr[pg.long()], cthr[pb.long()])
+    mask[real] = floor_mask(counts[real], thr[g_r], cthr[b])
+    return counts, mask

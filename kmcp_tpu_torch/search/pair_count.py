@@ -10,7 +10,10 @@ counts a block's pairs against that block's rows held on chip (a word tile
 of them in shared memory), but it takes pairs in any order and the
 row-stacked matrix as it is: the wrapper sorts the pairs by block on the
 device (``block_order``) and the kernel writes row p of its outputs for
-pair p.
+pair p.  A pair whose block is ``nb`` is padding (the fixed-size pair list
+of the screened tail, search/screen.py ``pair_list``): it sorts past every
+block, so no variant gathers a row for it; its mask row is 0 and its counts
+row is left unwritten.
 """
 
 from __future__ import annotations
@@ -51,18 +54,20 @@ def _check(bits, loc, pb, pg, cthr, thr) -> int:
 
 def check_pairs(loc: torch.Tensor, pb: torch.Tensor, pg: torch.Tensor,
                 s_block: int, n_blocks: int):
-    """Raise unless loc lies in 0..s_block, pb in 0..B-1 and pg in
-    0..nb-1 (each check waits for the device on a CUDA tensor)."""
+    """Raise unless loc lies in 0..s_block, pb in 0..B-1 and pg in 0..nb
+    (nb: a padding pair); each check waits for the device on a CUDA
+    tensor."""
     check_rows(loc, s_block + 1)
     check_rows(pb, loc.shape[0])
-    check_rows(pg, n_blocks)
+    check_rows(pg, n_blocks + 1)
 
 
 def block_order(pg: torch.Tensor, n_blocks: int
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Pairs' blocks pg int32 [P] -> (order int32 [P], seg int32 [nb+1]):
     the pairs stably sorted by block, block g's at order[seg[g] ..
-    seg[g+1]].  On the device, no host sync."""
+    seg[g+1]], padding pairs (block nb) past seg[nb].  On the device, no
+    host sync."""
     order = torch.argsort(pg, stable=True)
     blocks = torch.arange(n_blocks + 1, dtype=pg.dtype, device=pg.device)
     seg = torch.searchsorted(pg[order], blocks)
@@ -91,10 +96,12 @@ def pair_count(bits: torch.Tensor, loc: torch.Tensor, pb: torch.Tensor,
     sentinel s_block), pb/pg int32 [P] (read and block of each pair), cthr
     int32 [B] per-read floor, thr int32 [nb, 32 W] per-target floor ->
     (counts int32 [P, 32 W], mask int32 [P, W] with bit j of word w set iff
-    counts[p, 32 w + j] >= max(thr[pg[p], 32 w + j], cthr[pb[p]])).  A CPU
-    tensor takes ``pair_count_plain``; a CUDA tensor launches the kernel or
-    raises.  ``rows_checked=True`` skips ``check_pairs`` (device syncs)
-    for a caller that has checked or built the indices itself."""
+    counts[p, 32 w + j] >= max(thr[pg[p], 32 w + j], cthr[pb[p]])); a
+    padding pair (pg[p] = nb) has mask row 0 and counts row unwritten.  A
+    CPU tensor takes ``pair_count_plain``; a CUDA tensor launches the
+    kernel or raises.  ``rows_checked=True`` skips ``check_pairs`` (device
+    syncs) for a caller that has built pb and pg itself and checked or
+    clamped loc (count.py ``defer_rows``)."""
     if bits.device.type == "cpu":
         return pair_count_plain(bits, loc, pb, pg, cthr, thr)
     s_block = _check(bits, loc, pb, pg, cthr, thr)
@@ -103,7 +110,7 @@ def pair_count(bits: torch.Tensor, loc: torch.Tensor, pb: torch.Tensor,
         check_pairs(loc, pb, pg, s_block, n_blocks)
     P, K = pb.shape[0], loc.shape[1]
     counts = torch.empty((P, 32 * W), dtype=torch.int32, device=bits.device)
-    mask = torch.empty((P, W), dtype=torch.int32, device=bits.device)
+    mask = torch.zeros((P, W), dtype=torch.int32, device=bits.device)
     if P == 0:
         return counts, mask
     lib = get_lib()
@@ -132,20 +139,27 @@ pair_count.launches = 0
 def pair_count_plain(bits: torch.Tensor, loc: torch.Tensor, pb: torch.Tensor,
                      pg: torch.Tensor, cthr: torch.Tensor, thr: torch.Tensor
                      ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version: per window, each pair's row of its block
-    (the global sentinel row for sentinel windows) -> unpack bits -> add,
-    then threshold."""
+    """Plain PyTorch version: per window, each real pair's row of its
+    block (the global sentinel row for sentinel windows) -> unpack bits ->
+    add, then threshold; padding pairs count 0 and set no bit."""
     s_block = _check(bits, loc, pb, pg, cthr, thr)
     n_blocks, W = thr.shape[0], bits.shape[1]
     check_pairs(loc, pb, pg, s_block, n_blocks)
     P = pb.shape[0]
+    counts = torch.zeros((P, 32 * W), dtype=torch.int32, device=bits.device)
+    mask = torch.zeros((P, W), dtype=torch.int32, device=bits.device)
+    real = torch.nonzero(pg < n_blocks).squeeze(1)
+    b, g = pb[real].long(), pg[real].long()
     shifts = torch.arange(32, dtype=torch.int32, device=bits.device)
-    lp = loc[pb.long()].long()  # [P, K]
+    lp = loc[b].long()  # [P_real, K]
     rows = torch.where(lp == s_block, n_blocks * s_block,
-                       lp + pg.long()[:, None] * s_block)
-    counts = torch.zeros((P, W, 32), dtype=torch.int32, device=bits.device)
+                       lp + g[:, None] * s_block)
+    c = torch.zeros((real.shape[0], W, 32), dtype=torch.int32,
+                    device=bits.device)
     for i in range(loc.shape[1]):
         # arithmetic shift then & 1 reads bit 31 of negative words right
-        counts += (bits[rows[:, i]][..., None] >> shifts) & 1
-    counts = counts.reshape(P, 32 * W)
-    return counts, floor_mask(counts, thr[pg.long()], cthr[pb.long()])
+        c += (bits[rows[:, i]][..., None] >> shifts) & 1
+    c = c.reshape(-1, 32 * W)
+    counts[real] = c
+    mask[real] = floor_mask(c, thr[g], cthr[b])
+    return counts, mask

@@ -13,6 +13,17 @@ with the port's own copies of its helpers ``_unpack_result`` (:65, the
 2-slots-per-read candidate budget, 4x overflow retry, ``lexsort`` order and
 the row bytes are the JAX streamer's.  Reads ship as ASCII rows.
 
+Batches are in flight as in the JAX device path (:617-637): ``_flush``
+(``flush_batch``, :348-500) packs a batch into pinned memory, sends it to
+the card without blocking and dispatches its search
+(``TorchDeviceDB.search_reads_async``), whose result comes back to pinned
+memory behind an event; once ``in_flight`` batches (4) are pending,
+``_drain`` (``drain``, :502-611) takes the oldest: it waits for that event,
+re-runs the batch with 4x the budget on a candidate overflow (synchronously,
+as there), searches its slow rows, orders and writes its rows, while the
+card works on the later batches.  Batches drain in order, so the TSV is the
+same bytes at every depth.
+
 Single-end reads over the k-mer dedup threshold take the object-engine
 route, as in the JAX streamer (stream.py:565-584), counting on the same
 device; they are counted in ``slow_rows``.  Read pairs hash as one joined
@@ -25,6 +36,7 @@ rows over the threshold are uniqued on the device instead
 from __future__ import annotations
 
 import sys
+from collections import deque
 from itertools import islice
 
 import numpy as np
@@ -34,6 +46,11 @@ from ..kmer import native
 from .device import TorchDeviceDB, two_pass_ready
 from .engine import QueryResult, SearchEngine
 from .tsv import write_results
+
+MIN_BATCH = 16384  # the smallest batch the streamer sends (stream.py:295)
+# candidate slots a batch starts with, per read of the batch size
+# (stream.py:386-390); a test may set a fraction to force the 4x retry
+SLOTS_PER_READ = 2
 
 
 def _unpack_result(res, budget, nb, T):
@@ -55,9 +72,10 @@ def _unpack_result(res, budget, nb, T):
     return n, idx // T, idx % T, cnt, nk
 
 
-def _pack_reads_matrix(seqs, lens, lmax):
-    """Zero-padded row-major [B, lmax] uint8 read matrix."""
-    return native.pack_rows(seqs, lens, lmax)
+def _pack_reads_matrix(seqs, lens, lmax, out=None):
+    """Zero-padded row-major [B, lmax] uint8 read matrix, into ``out``
+    (e.g. pinned memory) when given."""
+    return native.pack_rows(seqs, lens, lmax, out)
 
 
 def _fmt_ratio_memo():
@@ -112,16 +130,20 @@ def usable(engine: SearchEngine, paired: bool = False) -> bool:
 
 class TorchStreamSearcher:
     """``pass2`` picks the screened tail's pass-2 kernel of a multi-block
-    DB (TorchDeviceDB)."""
+    DB (TorchDeviceDB); ``in_flight`` is the number of batches dispatched
+    before the oldest is drained (the JAX device path's 4)."""
 
     def __init__(self, engine: SearchEngine, device="cuda",
-                 pass2: str = "auto"):
+                 pass2: str = "auto", in_flight: int = 4):
         if not usable(engine):
             raise ValueError(NOT_STREAMED)
+        if in_flight < 1:
+            raise ValueError(f"in_flight must be >= 1, got {in_flight}")
         self.engine = engine
         self.opt = engine.opt
         self.db = engine.dbs[0]
         self.dev = TorchDeviceDB(self.db, self.opt, device, pass2)
+        self.in_flight = in_flight
         self.k = self.db.ks_desc[0]
         self.multi_k = len(self.db.ks_desc) > 1
         self._fpr_tabs: dict[int, dict] = {}
@@ -133,31 +155,46 @@ class TorchStreamSearcher:
     def run(self, queries, out, start_idx: int = 0, paired: bool = False,
             progress=None) -> tuple[int, int]:
         """queries: iterator of (id, seq, None), or with ``paired`` of (id,
-        seq1, seq2) (seq2 may be empty).  Returns (total, matched)."""
+        seq1, seq2) (seq2 may be empty).  Returns (total, matched).
+
+        Batches are flushed to the card as they fill; once ``in_flight``
+        are pending the oldest is drained (its result waited for, retried,
+        ordered and written), in order, so idx0, the totals and
+        ``progress`` advance in drain order (stream.py:617-637)."""
         if not usable(self.engine, paired):
             raise ValueError(NOT_STREAMED)
         dev = self.dev
         # the dense tail's int32 flat ids b*T + t cap the batch at
         # B*T <= 2^31 (the screened tail's split ids do not); batches stay
         # multiples of 256 reads, as in the JAX streamer
-        batch_size = max(self.opt.batch_size, 16384)
+        batch_size = max(self.opt.batch_size, MIN_BATCH)
         if dev.n_blocks == 1:
             batch_size = min(batch_size, (2**31) // dev.t_per_block)
         batch_size = max(batch_size // 256 * 256, 256)
         fmt = (_fmt_ratio_memo(), _fmt_ratio_memo(), {})
         total = matched = 0
+        pending: deque = deque()
+
+        def drain():
+            nonlocal total, matched
+            state = pending.popleft()
+            matched += self._drain(state, out, fmt)
+            total += state["real_b"]
+            if progress is not None:
+                progress(total)
+
         idx0 = start_idx
         it = iter(queries)
         while True:
             batch = list(islice(it, batch_size))
             if not batch:
                 break
-            m = self._search_batch(batch, batch_size, out, idx0, fmt, paired)
-            total += len(batch)
-            matched += m
+            pending.append(self._flush(batch, batch_size, idx0, paired))
             idx0 += len(batch)
-            if progress is not None:
-                progress(total)
+            if len(pending) >= self.in_flight:
+                drain()
+        while pending:
+            drain()
         if self.slow_rows:
             print(
                 f"[search] {self.slow_rows} reads over the k-mer dedup "
@@ -166,13 +203,15 @@ class TorchStreamSearcher:
             )
         return total, matched
 
-    def _search_batch(self, batch, batch_size, out, idx0, fmt,
-                      paired=False) -> int:
-        """Search, order and write one batch; returns its matched reads.
-        With ``paired`` each (id, seq1, seq2) hashes as one joined row; the
-        TSV's qLen is len1 + len2, and the min-length filter reads
-        max(len1, len2) (stream.py:352-373, :461-467)."""
-        opt = self.opt
+    def _flush(self, batch, batch_size, idx0, paired=False) -> dict:
+        """Pack one batch, send it to the card and dispatch its search
+        (``flush_batch``, stream.py:348-500): the rows go up from a pinned
+        buffer without blocking, and the search returns a handle at once.
+        The batch's state keeps the pinned buffer and the reads on the card
+        until its drain, for the copy and for a retry.  With ``paired``
+        each (id, seq1, seq2) hashes as one joined row; the TSV's qLen is
+        len1 + len2, and the min-length filter reads max(len1, len2)
+        (stream.py:352-373, :461-467)."""
         dev = self.dev
         B = len(batch)
         if paired:
@@ -189,30 +228,44 @@ class TorchStreamSearcher:
         if not paired:
             qlen = lens[:B]
             eff = lens
-        budget = 2 * batch_size
         lmax = max(-(-int(lens.max()) // 32) * 32, self.k + 31)
-        reads = torch.from_numpy(_pack_reads_matrix(seqs, lens, lmax)).to(
-            dev.device
-        )
+        host = torch.empty((batch_size, lmax), dtype=torch.uint8,
+                           pin_memory=dev.device.type == "cuda")
+        _pack_reads_matrix(seqs, lens, lmax, host.numpy())
+        reads = host.to(dev.device, non_blocking=True)
+        budget = max(1, int(SLOTS_PER_READ * batch_size))
+        return {
+            "batch": batch, "real_b": B, "idx0": idx0, "qlen": qlen,
+            "eff": eff, "paired": paired, "budget": budget,
+            "host_reads": host, "reads": reads,
+            "handle": dev.search_reads_async(reads, eff, budget, paired),
+        }
+
+    def _drain(self, state, out, fmt) -> int:
+        """Wait for a batch's result, retry it on a candidate overflow,
+        search its slow rows on the object engine, order and write its rows
+        (``drain``, stream.py:502-611); returns its matched reads."""
+        opt = self.opt
+        dev = self.dev
+        batch, B, idx0 = state["batch"], state["real_b"], state["idx0"]
+        paired, budget = state["paired"], state["budget"]
+        nb = state["eff"].shape[0]
         T = dev.t_per_block
         n_cand, qi, t, cnt, nk = _unpack_result(
-            dev.search_reads(reads, eff, budget, paired), budget, batch_size,
-            T
-        )
+            state["handle"].result(), budget, nb, T)
         while qi is None:  # candidate overflow: re-run with 4x the budget
             budget *= 4
             self.retries += 1
             n_cand, qi, t, cnt, nk = _unpack_result(
-                dev.search_reads(reads, eff, budget, paired), budget,
-                batch_size, T
-            )
+                dev.search_reads(state["reads"], state["eff"], budget,
+                                 paired), budget, nb, T)
 
         counts = nk[:B]
-        state = {
+        rows_of = {  # what the writers read of the batch
             "ids": [q[0] for q in batch],
             "counts": counts,
-            "qlen": qlen,
-            "too_short": eff[:B] < opt.min_query_len,
+            "qlen": state["qlen"],
+            "too_short": state["eff"][:B] < opt.min_query_len,
         }
         # paired rows over the dedup threshold were uniqued on the device
         slow_rows = (np.zeros(0, dtype=np.int64) if paired else
@@ -221,7 +274,7 @@ class TorchStreamSearcher:
             # unmatched reads retry with the DB's smaller ks
             has_match = np.zeros(B, dtype=bool)
             has_match[qi] = True
-            retry = ~has_match & ~state["too_short"] & (
+            retry = ~has_match & ~rows_of["too_short"] & (
                 counts >= opt.min_kmers
             )
             slow_rows = np.union1d(slow_rows, np.nonzero(retry)[0])
@@ -243,12 +296,12 @@ class TorchStreamSearcher:
             1 for r in slow_set if slow_results[r].matches
         )
         if opt.keep_top_scores <= 0:
-            self._write_native(out, state, qi, t, cnt, hits, slow_set,
+            self._write_native(out, rows_of, qi, t, cnt, hits, slow_set,
                                slow_results, idx0)
         else:
             names = [(opt.name_map or {}).get(n, n) for n in dev.names]
             self._write_python(
-                out, state, qi, t, cnt, hits, slow_set, slow_results, idx0,
+                out, rows_of, qi, t, cnt, hits, slow_set, slow_results, idx0,
                 *fmt, names,
                 [str(int(ix) & 0xFFFF) for ix in dev.indices],
                 [str(int(ix) >> 16) for ix in dev.indices],

@@ -42,6 +42,7 @@ def main(argv=None) -> int:
     from ..parallel import distributed as D
     from ..parallel.sharding import host_locations
     from ..search.device_step import target_floor
+    from ..search.device_step import host_result
     from ..search.screen import sharded_screened_tail
 
     address = a.address
@@ -127,10 +128,10 @@ def main(argv=None) -> int:
         def t(x):
             return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
 
-        meta, _aux = sharded_screened_tail(
+        meta, _aux = host_result(sharded_screened_tail(
             t(bits_l.view(np.int32)), t(u2.view(np.int32)), t(loc2),
             t(locu2), t(nk2), t(lens2), t(cmin2), t(theta2),
-            t(thr2[list(own)]), budget, 30, 256, mesh, B2)
+            t(thr2[list(own)]), budget, 30, 256, mesh, B2))
         n2 = int(meta[0])
         check(n2 <= budget, "screened multihost budget overflow")
         T2 = nb * t_block

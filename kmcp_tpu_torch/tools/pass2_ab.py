@@ -13,12 +13,13 @@ after a warm-up:
 
 - each kernel as its wrapper runs it (the earlier K6' on the U, slabs and
   block tiles its route built, outside the time);
-- each whole route as the screened tail runs it: K5' + compaction, and for
-  K6' the earlier U build + kernel + floors in torch + compaction +
-  restoring sort against this kernel (block sort, fused floors) +
-  compaction;
+- each whole route as the screened tail runs it: the earlier K5' + its
+  exact-size compaction, and the earlier U build + kernel + floors in
+  torch + compaction + restoring sort, against this checkout's
+  ``screen.pass2_fixed`` on K5' and on K6' (block sort, fused floors,
+  fixed-budget compaction at 2 slots a read, chunk splice);
 - this checkout's torch steps around the kernels alone: the block sort
-  and the compaction's ``mask_hits``.
+  and the fixed-budget compaction ``compact_mask``.
 
 Every output must equal the plain versions'.  Prints one JSON object per
 shape and, given ``--out``, writes them all there.
@@ -40,7 +41,7 @@ import torch
 
 from ..kernels import _build
 from ..search import screen
-from ..search.device_step import FLOOR_NEVER, mask_hits
+from ..search.device_step import FLOOR_NEVER, compact_mask, mask_hits
 from ..search.group_count import build_u, gemm_slabs, group_count, s_pad_for
 from ..search.pair_count import block_order, pair_count, pair_count_plain
 
@@ -148,6 +149,7 @@ def main() -> int:
         thr = as_dev(thr_np)
         T = 32 * W
         chunk = screen.pass2_chunk(T)
+        budget = 2 * B  # the streamer's starting candidate slots
 
         want_c, want_m = pair_count_plain(bits, loc, pb, pg, cthr, thr)
         # the earlier K5'
@@ -211,29 +213,40 @@ def main() -> int:
             "k6_new": lambda: group_count(slabs, loc, pb, pg, cthr, thr,
                                           S_BLOCK, rows_checked=True),
             "route5_old": old_k5_route,
-            "route5_new": lambda: screen._pass2_pair(bits, loc, pb, pg, cthr,
-                                                     thr, chunk),
+            "route5_new": lambda: screen.pass2_fixed(
+                "pair", bits, None, loc, pb, pg, cthr, thr, S_BLOCK, budget,
+                chunk),
             "route6_old": old_k6_route,
-            "route6_new": lambda: screen._pass2_gemm(
-                slabs, loc, pb, pg, cthr, thr, S_BLOCK, chunk),
+            "route6_new": lambda: screen.pass2_fixed(
+                "gemm", None, slabs, loc, pb, pg, cthr, thr, S_BLOCK, budget,
+                chunk),
         }
         # every output against the plain versions
         old_k5()
         old_k6()
         new5 = fns["k5_new"]()
         new6 = fns["k6_new"]()
-        routes = [fns[k]() for k in ("route5_old", "route5_new",
-                                     "route6_old", "route6_new")]
+        routes = [fns[k]() for k in ("route5_old", "route6_old")]
+        fixed = [fns[k]() for k in ("route5_new", "route6_new")]
         torch.cuda.synchronize()
         p, t = mask_hits(want_m)
         want_route = (p, t, want_c[p, t])
+        # the fixed-budget routes: (read, lane g T + t, count), the
+        # first ``budget`` candidates, and the exact total
+        n_want = min(p.numel(), budget)
+        want_fixed = (pb[p].long()[:n_want], (pg[p].long() * T + t)[:n_want],
+                      want_c[p, t][:n_want])
         exact = (torch.equal(oc, want_c) and torch.equal(om, want_m)
                  and torch.equal(o6[slot], want_c)
                  and all(torch.equal(a, b) for a, b in zip(new5, (want_c, want_m)))
                  and all(torch.equal(a, b) for a, b in zip(new6, (want_c, want_m)))
                  and all(torch.equal(a, b) for r in routes
-                         for a, b in zip(r, want_route)))
-        del new5, new6, routes
+                         for a, b in zip(r, want_route))
+                 and all(int(n) == p.numel() and all(
+                     torch.equal(a[v].to(b.dtype), b)
+                     for a, b in zip(lanes, want_fixed))
+                     for n, lanes, v in fixed))
+        del new5, new6, routes, fixed
         times: dict = {k: [] for k in fns}
         for pair in (("k5", "old", "new"), ("k6", "old", "new"),
                      ("route5", "old", "new"), ("route6", "old", "new")):
@@ -244,7 +257,7 @@ def main() -> int:
         # the torch steps around the new kernels, alone
         parts = {
             "block_order": lambda: block_order(pg, nb),
-            "mask_hits": lambda: mask_hits(want_m),
+            "compact_mask": lambda: compact_mask(want_m, budget, 0),
         }
         for k, fn in parts.items():
             times[k] = [median_ms(fn, args.reps)]

@@ -8,9 +8,13 @@ value plane at single-end and paired row lengths, every modulus path and
 rows too long to stage in shared memory), the count and screened tails,
 single-end and paired (in_dedup), a sketch DB's window selection after
 K1' and the object engine's TorchBlockCounter (K2' on short, wide, folded
-and -g rows), on the card against their CPU runs, and the multi-rank
+and -g rows), on the card against their CPU runs, the multi-rank
 dry run on the card (a world of one rank on nccl, two ranks sharing the
-card over gloo) against the single-device run.  Marked ``cuda``:
+card over gloo) against the single-device run, K5' and K6' on pair lists
+padded as the screened tail pads them, and the streamer with batches in
+flight (every tail flushed under ``set_sync_debug_mode("error")``, whole
+runs at depths 1 and 4) against its CPU run, and locations outside the
+table raising at ``result()`` with no fault on the card.  Marked ``cuda``:
 they skip without a card and run on the GPU machine with
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
@@ -21,7 +25,12 @@ import pytest
 import torch
 
 from kmcp_tpu_torch.search.count import count_mask, count_mask_plain
-from kmcp_tpu_torch.search.device_step import FLOOR_NEVER, count_tail
+from kmcp_tpu_torch.search.device import _copy_async
+from kmcp_tpu_torch.search.device_step import (
+    FLOOR_NEVER,
+    count_tail,
+    count_tail_async,
+)
 from kmcp_tpu_torch.search.group_count import (
     gemm_slabs,
     group_count,
@@ -29,7 +38,7 @@ from kmcp_tpu_torch.search.group_count import (
 )
 from kmcp_tpu_torch.search.hash_loc import hash_loc, hash_loc_plain
 from kmcp_tpu_torch.search.pair_count import pair_count, pair_count_plain
-from kmcp_tpu_torch.search.screen import screened_tail
+from kmcp_tpu_torch.search.screen import screened_tail, screened_tail_async
 
 pytestmark = pytest.mark.cuda
 
@@ -330,6 +339,60 @@ def test_screened_tail_cuda_matches_cpu(cuda, pass2):
     np.testing.assert_array_equal(outs[0][1], outs[1][1])
 
 
+@pytest.mark.parametrize("tail", ["dense", "pair", "gemm"])
+def test_bad_rows_raise_at_result_on_card(cuda, tail):
+    """A location plane with rows far outside its table (2^30 and -7)
+    dispatches, its kernels read only clamped rows, and the handle raises
+    check_rows's ValueError at ``result()``; the card has no fault after
+    it: the same tail on good rows then equals its CPU run."""
+    rng = np.random.default_rng(11)
+    B, K = 256, 140
+    if tail == "dense":
+        S, W = 499, 40
+        bits = rng.integers(0, 2**32, (S + 1, W), dtype=np.uint32)
+        bits[-1] = 0
+        arrays = (bits.view(np.int32),
+                  rng.integers(0, S + 1, (B, K, 1)).astype(np.int32),
+                  rng.integers(100, 140, B).astype(np.int32),
+                  rng.integers(120, 160, B).astype(np.int32),
+                  np.minimum(np.arange(193, dtype=np.int32) // 4 + 30, 192),
+                  np.full(32 * W, 1, dtype=np.int32))
+        n_rows, bad_plane = S + 1, 1
+
+        def run(t):
+            return count_tail_async(*t, 2048, 30, 256, chunk_reads=100)
+    else:
+        nb, s_block, W, nu = 6, 300, 4, 4099
+        u = rng.integers(0, 2**32, (nu + 1, 1), dtype=np.uint32)
+        u[-1] = 0
+        arrays = (_blocks(rng, nb, s_block, W), u.view(np.int32),
+                  rng.integers(0, s_block + 1, (B, K)).astype(np.int32),
+                  rng.integers(0, nu + 1, (B, K)).astype(np.int32),
+                  rng.integers(100, 140, B).astype(np.int32),
+                  rng.integers(120, 160, B).astype(np.int32),
+                  np.minimum(np.arange(193, dtype=np.int32) // 4 + 30, 192),
+                  rng.integers(60, 80, (nb, 193)).astype(np.int32),
+                  np.full((nb, 32 * W), 1, dtype=np.int32))
+        n_rows, bad_plane = s_block + 1, 2
+
+        def run(t):
+            bits01 = (gemm_slabs(t[0], nb, s_block, 320) if tail == "gemm"
+                      else None)
+            return screened_tail_async(*t, 4096, 30, 256, tail, bits01)
+    bad = [a.copy() for a in arrays]
+    bad[bad_plane].reshape(-1)[5] = 2**30
+    bad[bad_plane].reshape(-1)[-3] = -7
+    handle = _copy_async(run([torch.from_numpy(a).to(cuda) for a in bad]))
+    msg = rf"loc holds rows -7\.\.{2**30} outside 0\.\.{n_rows - 1}"
+    with pytest.raises(ValueError, match=msg):
+        handle.result()
+    torch.cuda.synchronize()
+    got = _copy_async(run([torch.from_numpy(a).to(cuda) for a in arrays]))
+    want = _copy_async(run([torch.from_numpy(a) for a in arrays]))
+    for a, b in zip(got.result(), want.result()):
+        np.testing.assert_array_equal(a, b)
+
+
 @pytest.mark.parametrize("lmax,S,h,N,values", [
     (160, 3578, 1, 0, False),
     (160, 3578, 1, 1 << 25, True),  # the screened path
@@ -508,3 +571,142 @@ def test_sharded_dryrun_on_card(cuda, n_ranks, backend):
     lines = dryrun_multichip(n_ranks, device="cuda:0", backend=backend,
                              timeout_s=600)
     assert [ln.split(":")[0] for ln in lines] == [f"mesh(d=1,t={n_ranks})"]
+
+
+@pytest.mark.parametrize("W,s_block", [(128, 3578), (1, 101)])
+def test_padding_pairs_match_plain(cuda, W, s_block):
+    """A pair list padded as ``screen.pair_list`` leaves it (pb = B - 1,
+    pg = nb): K5' (slice variant at W = 128, gather at W = 1) and K6' give
+    padding rows a zero mask and the real rows the plain versions' counts
+    and mask, and the unpadded launch's."""
+    from kmcp_tpu_torch.search.group_count import s_pad_for
+
+    rng = np.random.default_rng(W)
+    nb, B, K, P, pad = 4, 300, 140, 900, 700
+    bits = torch.from_numpy(_blocks(rng, nb, s_block, W)).to(cuda)
+    loc = rng.integers(0, s_block + 1, (B, K)).astype(np.int32)
+    flat = np.sort(rng.choice(B * nb, size=P, replace=False))
+    pb = np.r_[flat // nb, np.full(pad, B - 1)].astype(np.int32)
+    pg = np.r_[flat % nb, np.full(pad, nb)].astype(np.int32)
+    cthr = rng.integers(0, K // 3 + 2, B).astype(np.int32)
+    thr = np.where(rng.random((nb, 32 * W)) < 0.1, FLOOR_NEVER,
+                   rng.integers(0, K // 3 + 2, (nb, 32 * W))).astype(np.int32)
+    loc_t, pb_t, pg_t, cthr_t, thr_t = (torch.from_numpy(a).to(cuda) for a
+                                        in (loc, pb, pg, cthr, thr))
+    bits01 = gemm_slabs(bits, nb, s_block, s_pad_for(s_block))
+    runs = {
+        "pair": lambda b, g, plain=False: (pair_count_plain if plain else
+                                           pair_count)(
+            bits, loc_t, b, g, cthr_t, thr_t),
+        "gemm": lambda b, g, plain=False: (group_count_plain if plain else
+                                           group_count)(
+            bits01, loc_t, b, g, cthr_t, thr_t, s_block),
+    }
+    for name, run in runs.items():
+        counts, mask = run(pb_t, pg_t)
+        counts_p, mask_p = run(pb_t, pg_t, plain=True)
+        counts_u, mask_u = run(pb_t[:P], pg_t[:P])
+        torch.cuda.synchronize()
+        assert torch.equal(mask, mask_p) and not mask[P:].any(), name
+        assert torch.equal(counts[:P], counts_p[:P]), name
+        assert torch.equal(counts[:P], counts_u), name
+        assert torch.equal(mask[:P], mask_u) and mask_u.any(), name
+
+
+def _port_db(root, genomes, num_hashes=1, **index_kw):
+    """The port's own compute (k = 21, 3 chunks a genome) + tpu-native
+    index of FASTA genomes; ``index_kw`` e.g. a block screen."""
+    from kmcp_tpu_torch.commands.compute import ComputeOptions, run_compute
+    from kmcp_tpu_torch.index.build import run_index
+
+    root.mkdir(parents=True, exist_ok=True)
+    files = []
+    for g, seq in enumerate(genomes):
+        p = root / f"g{g}.fa"
+        p.write_text(f">g{g}\n{seq.decode()}\n")
+        files.append(str(p))
+    sketch = {k: index_kw.pop(k) for k in ("minimizer_w",) if k in index_kw}
+    run_compute(out_dir=str(root / "ks"), files=files,
+                opt=ComputeOptions(ks=[21], split_number=3, split_overlap=100,
+                                   **sketch), force=True, verbose=False)
+    run_index(in_dir=str(root / "ks"), out_dir=str(root / "db"),
+              num_hashes=num_hashes, fpr=0.3, force=True, tpu_native=True,
+              verbose=False, **index_kw)
+    return str(root / "db")
+
+
+def _stream_reads(rng, genomes, n, paired):
+    rc = bytes.maketrans(b"ACGT", b"TGCA")
+    out = []
+    for i in range(n):
+        g = genomes[i % len(genomes)]
+        p = int(rng.integers(0, len(g) - 400))
+        r2 = g[p + 200 : p + 350].translate(rc)[::-1] if paired else None
+        out.append((f"r{i}", g[p : p + 150], r2))
+    return out
+
+
+def test_inflight_stream_on_card(cuda, tmp_path, monkeypatch):
+    """Batches in flight on the card: one batch of every tail (dense,
+    three hashes, paired dense, screened on K5' and K6', paired screened,
+    a minimizer DB) flushed under ``set_sync_debug_mode("error")`` raises
+    nothing, and drains to the CPU run's bytes; whole runs of 256-read
+    batches at depths 1 and 4 write the CPU run's TSV."""
+    import io
+
+    from kmcp_tpu_torch.search import stream
+    from kmcp_tpu_torch.search.engine import SearchEngine, SearchOptions
+    from kmcp_tpu_torch.search.stream import TorchStreamSearcher
+
+    monkeypatch.setattr(stream, "MIN_BATCH", 256)
+    rng = np.random.default_rng(9)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    genomes = [rng.choice(bases, size=30000).tobytes() for _ in range(4)]
+    dbs = {
+        "dense": _port_db(tmp_path / "d1", genomes),
+        "three": _port_db(tmp_path / "d3", genomes, num_hashes=3),
+        "screened": _port_db(tmp_path / "s", genomes, native_block_targets=4,
+                             block_screen=True, uniform_sigs=True),
+        "sketch": _port_db(tmp_path / "m", genomes, minimizer_w=5),
+    }
+    tails = [("dense", "auto", False), ("three", "auto", False),
+             ("dense", "auto", True), ("screened", "pair", False),
+             ("screened", "gemm", False), ("screened", "pair", True),
+             ("sketch", "auto", False)]
+    single = _stream_reads(rng, genomes, 1100, False)
+    pairs = _stream_reads(rng, genomes, 1100, True)
+
+    def streamer(name, pass2, paired, dev, depth=4):
+        opt = SearchOptions(batch_size=256, paired_fpr_buf=paired)
+        return TorchStreamSearcher(SearchEngine([dbs[name]], opt, dev), dev,
+                                   pass2, in_flight=depth)
+
+    def tsv(st, reads, paired):
+        buf = io.StringIO()
+        st.run(iter(reads), buf, paired=paired)
+        return buf.getvalue()
+
+    cpu = torch.device("cpu")
+    sts = [streamer(n, p2, pd, cuda) for n, p2, pd in tails]
+    states = []
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for st, (_n, _p2, paired) in zip(sts, tails):
+            reads = pairs if paired else single
+            states.append(st._flush(reads[:256], 256, 0, paired))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for st, state, (name, p2, paired) in zip(sts, states, tails):
+        fmt = (stream._fmt_ratio_memo(), stream._fmt_ratio_memo(), {})
+        got, want = io.StringIO(), io.StringIO()
+        st._drain(state, got, fmt)
+        reads = (pairs if paired else single)[:256]
+        want = tsv(streamer(name, p2, paired, cpu), reads, paired)
+        assert got.getvalue() == want, (name, p2, paired)
+    for name, p2, paired in tails:
+        reads = pairs if paired else single
+        want = tsv(streamer(name, p2, paired, cpu), reads, paired)
+        for depth in (1, 4):
+            got = tsv(streamer(name, p2, paired, cuda, depth), reads, paired)
+            assert got == want, (name, p2, paired, depth)

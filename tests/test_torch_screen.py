@@ -47,9 +47,10 @@ from kmcp_tpu_torch.search.group_count import (
 from kmcp_tpu_torch.search.hash_loc import hash_loc
 from kmcp_tpu_torch.search.pair_count import pair_count, pair_count_plain
 from kmcp_tpu_torch.search.screen import (
-    _pass2_gemm,
-    _pass2_pair,
+    active_mask,
     active_pairs,
+    pair_list,
+    pass2_fixed,
     screened_tail,
 )
 
@@ -225,22 +226,34 @@ def test_kernels_plain_match_on_pairs():
 @pytest.mark.parametrize("seed", [3, 11])
 def test_pass2_gemm_matches_pair_route(seed):
     """The K6' route (fused floors, rows at the pair's index, no restoring
-    sort) yields the K5' route's (pair, lane, count) triples in the same
-    order, on the tail's own active pairs, in one chunk and in chunks of
-    20 pairs."""
+    sort) yields the K5' route's (read, lane, count) triples in the same
+    order, on the tail's own active pairs and on its fixed-size pair list
+    with 37 padding slots, in one chunk and in chunks of 20 pairs; the
+    padding changes nothing."""
     x = port_inputs(seed)
     pb, pg = active_pairs(x["u_ext"], x["loc_u"], x["nk"], x["lens"],
                           x["theta"], NB, MIN_LEN, DEDUP)
     cthr = torch.from_numpy(
         np.random.default_rng(seed).integers(0, 40, B).astype(np.int32))
     assert pb.shape[0] > 20
-    want = _pass2_pair(x["bits_ext"], x["loc"], pb, pg, cthr, x["thr"], 1 << 20)
-    assert want[0].numel() > 0
-    for chunk in (1 << 20, 20):
-        got = _pass2_gemm(x["bits01"], x["loc"], pb, pg, cthr, x["thr"],
-                          S_BLOCK, chunk)
-        for a, b in zip(got, want):
-            np.testing.assert_array_equal(a.numpy(), b.numpy())
+    active = active_mask(x["u_ext"], x["loc_u"], x["nk"], x["lens"],
+                         x["theta"], NB, MIN_LEN, DEDUP)
+    padded = pair_list(active, pb.shape[0] + 37)[:2]
+    assert (padded[1][-37:] == NB).all()
+
+    def route(pass2, pairs, chunk):
+        n, lanes, valid = pass2_fixed(pass2, x["bits_ext"], x["bits01"],
+                                      x["loc"], *pairs, cthr, x["thr"],
+                                      S_BLOCK, BIG, chunk)
+        assert int(n) == int(valid.sum())
+        return [a[valid].numpy() for a in lanes]
+
+    want = route("pair", (pb, pg), 1 << 20)
+    assert want[0].size > 0
+    for pairs in ((pb, pg), padded):
+        for pass2, chunk in (("pair", 20), ("gemm", 1 << 20), ("gemm", 20)):
+            for a, b in zip(route(pass2, pairs, chunk), want):
+                np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("chunk", [None, 50])
