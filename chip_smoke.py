@@ -3,8 +3,9 @@
 
 Drives the port's main paths, single-end streaming search over a
 single-block DB and over a multi-block ``--block-screen --uniform-sigs`` DB
-(the two-pass screened search), read pairs, sketch DBs and the searches
-the object engine runs, through the entry points a user calls
+(the two-pass screened search), read pairs, sketch DBs, the searches
+the object engine runs, the host backend and host hashing, through the
+entry points a user calls
 (``python -m kmcp_tpu_torch compute / index`` to build the DBs, then
 ``kmcp_tpu_torch.commands.search.run_search``), and the search TSVs
 through ``merge`` and ``profile``.  Every input is made here
@@ -139,6 +140,22 @@ raises, exit non-zero):
      batch retried at 4x; (d) the card's busy share (the union of its
      kernel and copy intervals over the wall) in one ``torch.profiler``
      run of wide-131k at depth 4.
+ 13. the host backend and host hashing on the card: (a) ``run_search`` with
+     ``SearchOptions(backend="host")`` (``HostDB``, the C++ counters) on
+     phase 4's, phase 5's, phase 6's and phase 7's DBs and reads, each TSV
+     byte-identical to that phase's card TSV, no kernel launched and no
+     tensor left on the card; (b) a multi-block DB without union screens,
+     2 hashes (phase 4's k-mer sets of 256 genomes indexed into 4 blocks
+     of 4,096 targets) and 4,096 of phase 4's reads: the host streamer and
+     the host engine's ``--low-mem`` row seek each byte-identical to the
+     card's object engine (K2'); (c) phase 8's minimizer DB and 4,096 of
+     phase 7's pairs: the host streamer (mates hashed as separate rows)
+     byte-identical to the card's object engine; (d) with
+     ``KMCP_TPU_DEVICE_HASH=0`` (the C++ hashes, K2' counts) phase 4's and
+     phase 5's searches at depths 1 and 4, in turns with the device-hash
+     run: every TSV the phase's card TSV, K1' launched by the device-hash
+     runs only, K2' by all; walls and rates beside the card's name and
+     power limit and the host's cores and OpenMP threads.
 Phase 3 also times K5' and K6' at the screened tail's padded pair budget
 (a 16,384-read batch's slots, padding pairs of block nb), exact against
 their plain versions there.  The stage-timed reruns of phases 4-8
@@ -146,7 +163,7 @@ synchronise around every stage, which serialises the batches in flight;
 their e2e rates come from the untimed runs.
 Every main-path run sets all four kernels' launch counts to 0 just before
 it and reads them just after (phase 11: every job on every rank; phase
-12: every run of (a)).
+12: every run of (a); phase 13: every run).
 Then one JSON line of kernel results, the card's name and power limit, and
 the last line ``{"ok": true, "device": {...}}``.
 
@@ -157,6 +174,7 @@ Scratch data goes to .smoke/ under the checkout (gitignored).
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import shutil
@@ -2002,6 +2020,204 @@ def phase_inflight(torch, dev, smi: str, cells: list, wide: tuple,
     return out
 
 
+# ------------------------------------------------------------- phase 13
+# the host backend and host hashing on the card
+MULTI_GENOMES, MULTI_BLOCK_TARGETS = 256, 4096  # (b): 4 blocks, 2 hashes
+HOST_READS = 4096  # (b) and (c): reads or pairs
+# (d): (where reads hash, depth) in turns, each cell's runs in one call
+A15_TURNS = (("device", 4), ("host", 1), ("host", 4), ("host", 4),
+             ("host", 1), ("device", 4))
+
+
+def host_info() -> str:
+    from kmcp_tpu_torch.kmer import native
+
+    return (f"host os.cpu_count() {os.cpu_count()}, OpenMP threads "
+            f"{native._threads(0)}")
+
+
+@contextlib.contextmanager
+def device_hash(value: str):
+    """KMCP_TPU_DEVICE_HASH set to ``value`` for the block."""
+    old = os.environ.get("KMCP_TPU_DEVICE_HASH")
+    os.environ["KMCP_TPU_DEVICE_HASH"] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["KMCP_TPU_DEVICE_HASH"]
+        else:
+            os.environ["KMCP_TPU_DEVICE_HASH"] = old
+
+
+def host_searched(torch, tag: str, db: str, out: str, opt=None,
+                  **kwargs) -> dict:
+    """``searched`` with ``opt`` (default options) on backend "host", as
+    ``search --backend host`` sets it: no kernel launched, no tensor left
+    on the card."""
+    from kmcp_tpu_torch.search.engine import SearchOptions
+
+    opt = dataclasses.replace(opt or SearchOptions(), backend="host")
+    before = torch.cuda.memory_allocated()
+    run = searched(db, out, opt=opt, **kwargs)
+    if any(run["launches"].values()) or (
+            torch.cuda.memory_allocated() != before):
+        raise AssertionError(f"{tag}: the host backend used the card "
+                             f"(launches {run['launches']})")
+    if run["stats"]["backend"] != "host":
+        raise AssertionError(f"{tag}: stats {run['stats']}")
+    return run
+
+
+def multi_block_db(wide_ks: str, pool) -> str:
+    """(b)'s DB: phase 4's k-mer sets of MULTI_GENOMES genomes (the 40
+    source genomes among them) indexed with 2 hashes into blocks of
+    MULTI_BLOCK_TARGETS targets, no union screen (``-n 2 -f 0.3
+    --tpu-native --native-block-targets 4096``)."""
+    from kmcp_tpu_torch.cli import main as cli
+    from kmcp_tpu_torch.kmer.kset import read_info, write_info
+
+    root = os.path.join(SCRATCH, "host", "multi")
+    shutil.rmtree(root, ignore_errors=True)
+    ks, db = os.path.join(root, "ks"), os.path.join(root, "db")
+    os.makedirs(ks)
+    names = {f"g{g:05d}" for g in genome_subset(pool, MULTI_GENOMES)}
+    write_info(ks, [i for i in read_info(wide_ks) if i.name in names])
+    if cli(["-q", "index", "-I", ks, "-O", db, "-n", "2", "-f", "0.3",
+            "--tpu-native", "--native-block-targets",
+            str(MULTI_BLOCK_TARGETS), "--force"]):
+        raise RuntimeError("index of the multi-block DB failed")
+    return db
+
+
+def phase_host(torch, dev, smi: str, cells: list, wide_ks: str, pool,
+               reads: str, pair_files, minimizer_db: str,
+               a15_cells: list) -> dict:
+    """Phase 13: the host backend and host hashing on the card.
+    (a) ``--backend host`` on each of ``cells`` (name, DB, run_search's
+    query arguments, its phase's card TSV, unit): the card's bytes, no
+    kernel launched; wall and rate.  (b) a multi-block DB without union
+    screens (``multi_block_db``): HOST_READS of phase 4's reads, the host
+    streamer against the card's object engine, and ``--low-mem`` row seek
+    on the host engine, the same bytes.  (c) phase 8's minimizer DB and
+    HOST_READS of phase 7's pairs: the host streamer (mates hashed as
+    separate rows) against the card's object engine.  (d) with
+    KMCP_TPU_DEVICE_HASH=0 each of ``a15_cells`` (name, DB, reads, its
+    phase's card TSV) at depths 1 and 4 in turns with the device-hash run
+    (A15_TURNS): the card's bytes, K1' launched only by the device-hash
+    runs, K2' by all; walls and rates."""
+    root = os.path.join(SCRATCH, "host")
+    os.makedirs(root, exist_ok=True)
+    out = {"launches": {}, "walls": {}}
+    info = f"{smi}; {host_info()}"
+
+    for name, db, query, card, unit in cells:  # (a)
+        tag = f"phase 13 (a) {name}"
+        run = host_searched(torch, tag, db, os.path.join(root, f"{name}.tsv"),
+                            **query)
+        with open(card, "rb") as f:
+            if run["tsv"] != f.read():
+                raise AssertionError(f"{tag}: TSV differs from the card's")
+        st = run["stats"]
+        if st["route"] != "stream" or st["hash"] != "host":
+            raise AssertionError(f"{tag}: stats {st}")
+        total = run["totals"][0]
+        out["walls"][f"(a) {name}"] = run["wall"]
+        log(f"{tag}: --backend host TSV byte-identical to the card's "
+            f"({len(run['tsv'])} bytes, {run['totals'][1]}/{total} "
+            f"matched), no kernel launched; run_search wall "
+            f"{run['wall']:.3f} s, {total / run['wall']:.1f} {unit}/s e2e, "
+            f"{st['n_blocks']} block(s), 4x retries {st['retries']}, slow "
+            f"rows {st['slow_rows']} ({info})")
+
+    few = os.path.join(root, "reads.fq")
+    fastq_every(reads, few, N_READS // HOST_READS)
+    p1, p2 = os.path.join(root, "r1.fq"), os.path.join(root, "r2.fq")
+    fastq_every(pair_files[0], p1, N_READS // HOST_READS)
+    fastq_every(pair_files[1], p2, N_READS // HOST_READS)
+    t0 = time.time()
+    multi = multi_block_db(wide_ks, pool)
+    build_s = time.time() - t0
+    from kmcp_tpu_torch.search.engine import SearchOptions
+
+    cases = {  # (b), (c): (DB, query, the host run's options and route)
+        "(b) multi-block": (multi, {"files": [few]}, {}, "stream"),
+        "(b) multi-block --low-mem": (multi, {"files": [few]},
+                                      {"low_mem": True}, "engine"),
+        "(c) minimizer pairs": (minimizer_db, {"read1": p1, "read2": p2},
+                                {}, "stream"),
+    }
+    card_runs: dict = {}
+    for name, (db, query, kw, route) in cases.items():
+        tag = f"phase 13 {name}"
+        key = (db, repr(query))
+        if key not in card_runs:  # each card run counts once
+            card_runs[key] = searched(
+                db, os.path.join(root, f"{name}.cuda.tsv"), device=dev,
+                **query)
+            out["launches"][f"phase 13 {name} card"] = card_runs[key][
+                "launches"]
+        card = card_runs[key]
+        la = card["launches"]
+        cuda = dev.type == "cuda"  # CPU tensors take the plain versions
+        if (card["stats"]["route"] != "engine"
+                or (cuda and la["count_mask"] == 0)
+                or any(la[n] for n in la if n != "count_mask")):
+            raise AssertionError(f"{tag}: card run {card['stats']}, {la}")
+        run = host_searched(torch, tag, db,
+                            os.path.join(root, f"{name}.host.tsv"),
+                            opt=SearchOptions(**kw), **query)
+        if run["tsv"] != card["tsv"] or run["totals"] != card["totals"]:
+            raise AssertionError(f"{tag}: TSV differs from the card's "
+                                 "object engine")
+        if run["stats"]["route"] != route:
+            raise AssertionError(f"{tag}: stats {run['stats']}")
+        out["walls"][name] = run["wall"]
+        st = card["stats"]
+        log(f"{tag}: host {route} TSV byte-identical to the card's object "
+            f"engine ({len(run['tsv'])} bytes, {run['totals'][1]}/"
+            f"{run['totals'][0]} matched); host wall {run['wall']:.3f} s, "
+            f"card engine wall {card['wall']:.3f} s"
+            + (f"; DB {MULTI_GENOMES * 64} targets in blocks of "
+               f"{MULTI_BLOCK_TARGETS}, 2 hashes, indexed in {build_s:.1f} s"
+               if name.startswith("(b)") else "")
+            + f"; card launches {la} ({info})")
+
+    for name, db, path, card in a15_cells:  # (d)
+        with open(card, "rb") as f:
+            want = f.read()
+        walls: dict = {}
+        for turn, (where, depth) in enumerate(A15_TURNS):
+            tag = f"phase 13 (d) {name} {where} hash depth {depth}"
+            with device_hash("1" if where == "device" else "0"):
+                run = searched(db, os.path.join(root, f"a15.{name}.{turn}"
+                                                ".tsv"), files=[path],
+                               device=dev, in_flight=depth)
+            la, st = run["launches"], run["stats"]
+            if run["tsv"] != want:
+                raise AssertionError(f"{tag}: TSV differs from the card's")
+            k1 = la["hash_loc"] > 0
+            if (st["hash"] != where or st["in_flight"] != depth
+                    or la["pair_count"] or la["group_count"]
+                    or (dev.type == "cuda" and (
+                        k1 != (where == "device") or la["count_mask"] == 0))
+                    or (where == "host" and k1)):
+                raise AssertionError(f"{tag}: launches {la}, stats {st}")
+            walls.setdefault(f"{where} d{depth}", []).append(run["wall"])
+            out["launches"][f"phase 13 (d) {name} {where} d{depth} "
+                            f"t{turn}"] = la
+            log(f"{tag}: TSV byte-identical to the card's "
+                f"({len(want)} bytes); run_search wall {run['wall']:.3f} s, "
+                f"{N_READS / run['wall']:.1f} reads/s e2e, slow rows "
+                f"{st['slow_rows']}, 4x retries {st['retries']}, launches "
+                f"{la}")
+        out["walls"][f"(d) {name}"] = walls
+        log(f"phase 13 (d) {name}: walls (s) "
+            + "; ".join(f"{k} {', '.join(f'{w:.3f}' for w in v)}"
+                        for k, v in walls.items()) + f" ({info})")
+    return out
+
+
 def main() -> int:
     t_start = time.time()
     import torch
@@ -2116,6 +2332,19 @@ def main() -> int:
          ("paired screened", screened["db"], "auto", pair_files),
          ("sketch", sketch["db"]["minimizer"], "auto", wide_reads)])
     walls["12 in flight"] = time.time() - t0
+    t0 = time.time()
+    host = phase_host(
+        torch, dev, smi,
+        [("wide-131k", wide_db, single, wide["out"], "reads"),
+         ("narrow-150", narrow_db, {"files": [reads]}, narrow["out"],
+          "reads"),
+         ("screened-131k", screened["db"], single, screened["ref"], "reads"),
+         ("paired-131k", wide_db, pairs, paired["dense"]["out"], "pairs")],
+        os.path.join(SCRATCH, "wide", "ks"), pool, wide_reads, pair_files,
+        sketch["db"]["minimizer"],
+        [("wide-131k", wide_db, wide_reads, wide["out"]),
+         ("narrow-150", narrow_db, reads, narrow["out"])])
+    walls["13 host"] = time.time() - t0
     for name, w in walls.items():
         log(f"phase {name}: {w:.1f} s")
 
@@ -2143,7 +2372,8 @@ def main() -> int:
                    **{f"phase 9 {p}": n[name]
                       for p, n in engine["launches"].items()},
                    **{p: n[name] for p, n in sharded["launches"].items()},
-                   **{p: n[name] for p, n in inflight["launches"].items()}}
+                   **{p: n[name] for p, n in inflight["launches"].items()},
+                   **{p: n[name] for p, n in host["launches"].items()}}
 
         def timed(r) -> dict:
             # only K6' has a one-call library counterpart; K1''s ms is the

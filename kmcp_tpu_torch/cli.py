@@ -1,9 +1,11 @@
-"""kmcp-tpu-torch command line: ``search`` on a torch device, and
-``compute``, ``index``, ``merge``, ``profile`` and ``utils`` on the host.
+"""kmcp-tpu-torch command line: ``search`` on a torch device or the host,
+and ``compute``, ``index``, ``merge``, ``profile`` and ``utils`` on the
+host.
 
     python -m kmcp_tpu_torch compute -I GENOMES -O KMERS -k 21 -n 10 -l 150
     python -m kmcp_tpu_torch index -I KMERS -O DB -n 1 -f 0.3 --tpu-native
     python -m kmcp_tpu_torch search --device cuda -d DB reads.fq -o out.tsv.gz
+    python -m kmcp_tpu_torch search --backend host -d DB reads.fq -o out.tsv
     python -m kmcp_tpu_torch merge a.tsv.gz b.tsv.gz -o merged.tsv.gz
     python -m kmcp_tpu_torch profile -T taxid.map -X TAXDUMP out.tsv.gz \
         -o out.profile -C out.cami -B out.binning.gz
@@ -12,7 +14,8 @@
 Port of kmcp_tpu/cli.py (``build_parser`` :19-272, the completion script
 :275-333, ``main`` :336, the dispatch :385-611), flag for flag with the same defaults, writing the same
 files.  ``search --device`` defaults to ``cuda``; ``--device cpu`` runs
-the kernels' plain PyTorch versions.
+the kernels' plain PyTorch versions; ``--backend host`` searches with the
+host's C++ and opens no torch device.
 """
 
 from __future__ import annotations
@@ -130,12 +133,12 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("-w", "--load-whole-db", action="store_true",
                    help="read index fully into RAM instead of mmap")
     s.add_argument("--low-mem", action="store_true",
-                   help="row-seek mode (kmcp_tpu --backend host): ignored "
-                   "on a torch device, with a warning")
+                   help="row-seek mode of --backend host: ignored on a "
+                   "torch device, with a warning")
     s.add_argument("--backend", default="numpy",
                    choices=["numpy", "jax", "host"],
-                   help="kmcp_tpu's engine choice; the port searches on "
-                   "--device and refuses any other value than numpy")
+                   help="numpy: search on --device; host: the host's C++ "
+                   "(no torch device); jax is kmcp_tpu's and refused here")
     s.add_argument("--batch-size", type=int, default=8192,
                    help="reads per batch (the device streams at least "
                    "16,384)")
@@ -479,10 +482,11 @@ def _dispatch(args) -> int:
     from .commands.search import run_search
     from .search.engine import SearchOptions
 
-    if args.backend != "numpy":
+    if args.backend == "jax":
         raise SystemExit(
-            "kmcp-tpu-torch search: --backend selects a kmcp_tpu engine; "
-            "this command searches on --device"
+            "kmcp-tpu-torch search: --backend jax is kmcp_tpu's TPU "
+            "engine; this command searches on --device or with --backend "
+            "host"
         )
     name_map = {}
     for nm_file in args.name_map:
@@ -508,6 +512,7 @@ def _dispatch(args) -> int:
         batch_size=args.batch_size,
         load_whole_db=args.load_whole_db,
         low_mem=args.low_mem,
+        backend=args.backend,
     )
     run_search(
         db_dir=args.db_dir,

@@ -1,5 +1,5 @@
-"""``search`` on a torch device: reads, read pairs or whole files (``-g``)
-against one or more DBs.
+"""``search`` on a torch device or on the host: reads, read pairs or whole
+files (``-g``) against one or more DBs.
 
 Port of kmcp_tpu/commands/search.py (``iter_queries`` :20, ``run_search``
 :74).  A search the streamer takes (search/stream.py ``usable``: single-end
@@ -7,7 +7,10 @@ reads or pairs against one DB, as the JAX streamer decides) streams on the
 device; every other one (``-g``, several DBs, ``--low-mem``, other sort
 orders, paired ``--try-se``, paired or multi-block sketch DBs, multi-block
 DBs without union screens, non-canonical DBs) runs the object engine's
-batch loop (:180-208), whose blocks count on the same device.
+batch loop (:180-208), whose blocks count on the same device.  With the
+host backend (``--backend host``) the streamer runs ``HostDB`` and the
+object engine the C++ counter, with row seek under ``--low-mem``; no torch
+device is opened.
 """
 
 from __future__ import annotations
@@ -115,25 +118,28 @@ def run_search(
     stats: dict | None = None,
     pass2: str = "auto",
     batch_queries: int = 8192,
-    in_flight: int = 4,
+    in_flight: int | None = None,
 ) -> tuple[int, int]:
     """Search reads, the pairs of ``read1`` and ``read2``, or with
     ``whole_file`` whole files, against ``db_dir`` on ``device``; returns
-    (total, matched).  ``pass2`` picks the screened pass-2 kernel of a
-    multi-block DB ("pair", "gemm" or "auto"); ``in_flight`` is the
-    streamer's depth, the batches it keeps on the card before it drains
-    the oldest (the JAX streamer's 4; no command-line flag sets it, as in
+    (total, matched).  ``opt.backend``: "numpy" searches on ``device``,
+    "host" on the host's C++ and never opens a torch device.  ``pass2``
+    picks the screened pass-2 kernel of a multi-block DB ("pair", "gemm" or
+    "auto"); ``in_flight`` is the streamer's depth, the batches it keeps
+    dispatched before it drains the oldest (None: the JAX streamer's 4 on
+    the device, 2 on the host; no command-line flag sets it, as in
     kmcp_tpu).  ``stats``, when given, receives ``route``: "stream" or
-    "engine"; for "stream" also the streamer's ``slow_rows``, ``retries``
-    and ``in_flight``, the DB's Bloom ``rows``, row ``words`` and
-    ``n_blocks``, the pass-2 kernel that ran (``pass2``, None for one
-    block), the union screen's ``union_rows`` and the active (read, block)
-    ``pairs`` of pass 2 (both 0 for one block), read once the run is
-    over."""
+    "engine", and ``backend``; for "stream" also ``hash`` ("device" or
+    "host": where the reads were hashed), the streamer's ``slow_rows``,
+    ``retries`` and ``in_flight``, the DB's Bloom ``rows``, row ``words``
+    and ``n_blocks``, the pass-2 kernel that ran (``pass2``, None for one
+    block and on the host), the union screen's ``union_rows`` and the
+    active (read, block) ``pairs`` of pass 2 (0 where there is none), read
+    once the run is over."""
     paired = bool(read1 and read2)
     # the query-FPR cache's size follows the mode (fpr.py)
     opt = dataclasses.replace(opt or SearchOptions(), paired_fpr_buf=paired)
-    dev = resolve_device(device)
+    dev = None if opt.backend == "host" else resolve_device(device)
     db_dirs = find_db_dirs(db_dir)
     if not db_dirs:
         raise SystemExit(f"kmcp-tpu-torch search: invalid database: {db_dir}")
@@ -148,11 +154,12 @@ def run_search(
                 )
     route = ("stream" if not whole_file and usable(engine, paired)
              else "engine")
+    where = "backend: host" if dev is None else f"device: {dev}"
     if verbose:
         print(
             "[search] main parameters:\n"
             f"  database: {db_dir}\n"
-            f"  device: {dev}, route: {route}, paired: {paired}, "
+            f"  {where}, route: {route}, paired: {paired}, "
             f"whole-file: {whole_file}\n"
             f"  min-query-len: {opt.min_query_len}, "
             f"min-kmers: {opt.min_kmers}, query-cov: {opt.min_query_cov}, "
@@ -183,20 +190,30 @@ def run_search(
         el = time.time() - t0
         print(
             f"[search] processed {total} queries at "
-            f"{total / el if el > 0 else 0:.1f} queries/s on {dev} "
+            f"{total / el if el > 0 else 0:.1f} queries/s on "
+            f"{'the host' if dev is None else dev} "
             f"({route}); "
             f"{matched / total * 100 if total else 0.0:.4f}% matched",
             file=sys.stderr,
         )
     if stats is not None:
-        stats["route"] = route
+        stats.update(route=route, backend=opt.backend)
         if streamer is not None:
             ddb = streamer.dev
+            if streamer.host:
+                pu = ddb.packed_union
+                scr = {"pass2": None, "union_rows": pu[1] if pu else 0,
+                       "pairs": 0}
+            else:
+                scr = {"pass2": ddb.pass2,
+                       "union_rows": (ddb.screen["num_bits"] if ddb.screen
+                                      else 0),
+                       "pairs": (int(ddb.tail_stats["pairs"]) if ddb.screen
+                                 else 0)}
             stats.update(
+                hash="device" if not (streamer.host or streamer.host_hash)
+                else "host",
                 slow_rows=streamer.slow_rows, retries=streamer.retries,
                 rows=ddb.total_rows, words=ddb.w, n_blocks=ddb.n_blocks,
-                pass2=ddb.pass2,
-                union_rows=ddb.screen["num_bits"] if ddb.screen else 0,
-                pairs=int(ddb.tail_stats["pairs"]) if ddb.screen else 0,
-                in_flight=streamer.in_flight)
+                in_flight=streamer.in_flight, **scr)
     return total, matched

@@ -1,7 +1,6 @@
 """On-disk database format: bit-sliced Bloom signature index.
 
-The port's copy of kmcp_tpu/index/format.py (less the ``--low-mem``
-row reader, which the port's search does not take).  Each block stores one
+The port's copy of kmcp_tpu/index/format.py.  Each block stores one
 dense uint32 bit matrix ``[num_sigs, num_words]`` (target t -> word t//32,
 bit t%32, LSB-first) as a raw ``.npy``, per-block metadata (names, genome
 sizes, packed chunk indices, per-target k-mer counts) in a JSON sidecar,
@@ -11,6 +10,7 @@ parameters in ``db.json``.  Both packages read and write the same bytes.
 
 from __future__ import annotations
 
+import ast
 import json
 import os
 from dataclasses import dataclass, field
@@ -107,6 +107,55 @@ def read_block_meta(db_dir: str, block_id: int) -> BlockMeta:
 def read_block_bits(db_dir: str, block_id: int, mmap: bool = True) -> np.ndarray:
     bits_path, _ = block_paths(db_dir, block_id)
     return np.load(bits_path, mmap_mode="r" if mmap else None)
+
+
+class BlockRowReader:
+    """Row-seek access to a block's on-disk bit matrix, the ``--low-mem``
+    mode of the host backend (the reference's Seek+ReadFull per Bloom row
+    instead of mmap, util-db-search.go:6975-7176): only the rows a batch
+    gathers are read, by pread, so memory stays O(batch), not O(index).
+    Runs of adjacent rows coalesce into one read; ``bytes_read`` counts
+    what was read."""
+
+    def __init__(self, db_dir: str, block_id: int):
+        path = block_paths(db_dir, block_id)[0]
+        self.f = open(path, "rb", buffering=0)
+        if self.f.read(6) != b"\x93NUMPY":
+            raise ValueError(f"not a .npy file: {path}")
+        major = self.f.read(2)[0]
+        n = 2 if major == 1 else 4
+        hlen = int.from_bytes(self.f.read(n), "little")
+        header = ast.literal_eval(self.f.read(hlen).decode("latin1"))
+        if header["descr"] not in ("<u4", "|u4") or header["fortran_order"]:
+            raise ValueError(f"unexpected block layout in {path}")
+        self.shape = header["shape"]
+        self.offset = 6 + 2 + n + hlen
+        self.row_bytes = self.shape[1] * 4
+        self.bytes_read = 0
+
+    def gather(self, rows: np.ndarray) -> np.ndarray:
+        """rows: sorted unique row indices -> [len(rows), W] uint32."""
+        nw = self.shape[1]
+        out = np.empty((len(rows), nw), dtype=np.uint32)
+        if len(rows) == 0:
+            return out
+        fd = self.f.fileno()
+        rb = self.row_bytes
+        rows = np.asarray(rows, dtype=np.int64)
+        breaks = np.flatnonzero(np.diff(rows) != 1) + 1
+        starts = np.concatenate(([0], breaks))
+        ends = np.concatenate((breaks, [len(rows)]))
+        for s, e in zip(starts, ends):
+            nbytes = (e - s) * rb
+            buf = os.pread(fd, nbytes, self.offset + int(rows[s]) * rb)
+            if len(buf) != nbytes:
+                raise OSError("short read from block file")
+            out[s:e] = np.frombuffer(buf, np.uint32).reshape(e - s, nw)
+            self.bytes_read += nbytes
+        return out
+
+    def close(self):
+        self.f.close()
 
 
 def union_path(db_dir: str, block_id: int) -> str:

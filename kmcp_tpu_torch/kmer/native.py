@@ -1,7 +1,8 @@
 """ctypes bridge to the port's host C++ (csrc/host/*.cpp): the rolling
 ntHash scan, the Bloom word-column build, the union-screen fill, the
 parallel sort + unique, Bloom-row locations, read-batch packing, the
-TSV row writer, and the search-TSV scanners of ``profile`` and ``merge``.
+read hashing and match counters of the host search backend, the TSV row
+writer, and the search-TSV scanners of ``profile`` and ``merge``.
 
 The port's copy of kmcp_tpu/kmer/native.py, cut to the entry points the
 port calls.  At first use ``g++`` builds the three sources into one shared
@@ -78,71 +79,104 @@ def get_lib() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        lib = ctypes.CDLL(build())
-        u8p = ctypes.POINTER(ctypes.c_uint8)
-        i32p = ctypes.POINTER(ctypes.c_int32)
-        i64p = ctypes.POINTER(ctypes.c_int64)
-        u32p = ctypes.POINTER(ctypes.c_uint32)
-        u64p = ctypes.POINTER(ctypes.c_uint64)
-        lib.kthash_scan_mt.argtypes = [
-            ctypes.c_char_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-            u64p, u8p, ctypes.c_int,
-        ]
-        lib.kthash_scan_mt.restype = None
-        lib.kt_sort_unique.argtypes = [u64p, ctypes.c_int64, ctypes.c_int]
-        lib.kt_sort_unique.restype = ctypes.c_int64
-        lib.kt_build_word_column.argtypes = [
-            u64p, i64p, ctypes.c_int, ctypes.c_int, ctypes.c_uint64, u32p,
-        ]
-        lib.kt_build_word_column.restype = None
-        lib.kt_union_fill.argtypes = [
-            u64p, ctypes.c_int64, ctypes.c_uint64, u64p, ctypes.c_int,
-        ]
-        lib.kt_union_fill.restype = None
-        lib.kt_locations.argtypes = [
-            u64p, ctypes.c_int64, ctypes.c_int, ctypes.c_uint64, i32p,
-            ctypes.c_int,
-        ]
-        lib.kt_locations.restype = None
-        lib.kt_write_rows.argtypes = [
-            i32p, i32p, i32p, ctypes.c_int64,
-            ctypes.c_int64, i64p, i64p, i32p, u8p,
-            ctypes.c_char_p, i64p,
-            ctypes.c_char_p, i64p,
-            ctypes.c_char_p, i64p,
-            i64p,
-            ctypes.c_char_p, i64p, ctypes.c_int64,
-            ctypes.c_int64, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_char_p, ctypes.c_int64,
-        ]
-        lib.kt_write_rows.restype = ctypes.c_int64
-        lib.kt_pack_rows.argtypes = [
-            ctypes.c_char_p, i64p, ctypes.c_int64, ctypes.c_int64, u8p,
-        ]
-        lib.kt_pack_rows.restype = None
-        f64p = ctypes.POINTER(ctypes.c_double)
-        lib.kt_parse_search_tsv.argtypes = [
-            ctypes.c_char_p, ctypes.c_int64, ctypes.c_double,
-            ctypes.c_double,
-            i64p, i32p, i32p, i64p, f64p,
-            i64p, i64p, i32p, i64p,
-            i64p, i64p,
-            i64p,
-        ]
-        lib.kt_parse_search_tsv.restype = ctypes.c_int64
-        lib.kt_merge_scan.argtypes = [
-            ctypes.c_char_p, ctypes.c_int64, ctypes.c_int,
-            i64p, i64p, i64p, i64p, i64p, i64p, f64p, i64p,
-        ]
-        lib.kt_merge_scan.restype = ctypes.c_int64
-        lib.kt_merge_emit.argtypes = [
-            ctypes.c_char_p, ctypes.c_int64, i64p,
-            i64p, i64p, i64p, i64p, i64p, i64p, i32p,
-            ctypes.c_void_p,
-        ]
-        lib.kt_merge_emit.restype = ctypes.c_int64
-        _lib = lib
+        _lib = bind(ctypes.CDLL(build()))
         return _lib
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the argument and result types of the library's exports."""
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    u32p = ctypes.POINTER(ctypes.c_uint32)
+    u64p = ctypes.POINTER(ctypes.c_uint64)
+    lib.kthash_scan_mt.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+        u64p, u8p, ctypes.c_int,
+    ]
+    lib.kthash_scan_mt.restype = None
+    lib.kt_sort_unique.argtypes = [u64p, ctypes.c_int64, ctypes.c_int]
+    lib.kt_sort_unique.restype = ctypes.c_int64
+    lib.kt_build_word_column.argtypes = [
+        u64p, i64p, ctypes.c_int, ctypes.c_int, ctypes.c_uint64, u32p,
+    ]
+    lib.kt_build_word_column.restype = None
+    lib.kt_union_fill.argtypes = [
+        u64p, ctypes.c_int64, ctypes.c_uint64, u64p, ctypes.c_int,
+    ]
+    lib.kt_union_fill.restype = None
+    lib.kt_locations.argtypes = [
+        u64p, ctypes.c_int64, ctypes.c_int, ctypes.c_uint64, i32p,
+        ctypes.c_int,
+    ]
+    lib.kt_locations.restype = None
+    lib.kt_write_rows.argtypes = [
+        i32p, i32p, i32p, ctypes.c_int64,
+        ctypes.c_int64, i64p, i64p, i32p, u8p,
+        ctypes.c_char_p, i64p,
+        ctypes.c_char_p, i64p,
+        ctypes.c_char_p, i64p,
+        i64p,
+        ctypes.c_char_p, i64p, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_char_p, ctypes.c_int64,
+    ]
+    lib.kt_write_rows.restype = ctypes.c_int64
+    lib.kt_pack_rows.argtypes = [
+        ctypes.c_char_p, i64p, ctypes.c_int64, ctypes.c_int64, u8p,
+    ]
+    lib.kt_pack_rows.restype = None
+    f64p = ctypes.POINTER(ctypes.c_double)
+    lib.kt_parse_search_tsv.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_double,
+        ctypes.c_double,
+        i64p, i32p, i32p, i64p, f64p,
+        i64p, i64p, i32p, i64p,
+        i64p, i64p,
+        i64p,
+    ]
+    lib.kt_parse_search_tsv.restype = ctypes.c_int64
+    lib.kt_merge_scan.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_int,
+        i64p, i64p, i64p, i64p, i64p, i64p, f64p, i64p,
+    ]
+    lib.kt_merge_scan.restype = ctypes.c_int64
+    lib.kt_merge_emit.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, i64p,
+        i64p, i64p, i64p, i64p, i64p, i64p, i32p,
+        ctypes.c_void_p,
+    ]
+    lib.kt_merge_emit.restype = ctypes.c_int64
+    i64, c_int = ctypes.c_int64, ctypes.c_int
+    lib.kt_hash_reads.argtypes = [
+        ctypes.c_char_p, i64p, i64p, i64, c_int, c_int, ctypes.c_uint64,
+        u64p, i64, i64p, c_int, i64, c_int, c_int,
+    ]
+    lib.kt_hash_reads.restype = None
+    lib.kt_hash_reads_loc.argtypes = [
+        ctypes.c_char_p, i64p, i64p, i64, c_int, c_int, ctypes.c_uint64,
+        ctypes.c_uint64, c_int, i32p, i64, i64p, c_int, i64, c_int, c_int,
+    ]
+    lib.kt_hash_reads_loc.restype = None
+    lib.kt_count_block.argtypes = [
+        u32p, i64, i32p, i64, i64, c_int, i32p, c_int, u8p,
+    ]
+    lib.kt_count_block.restype = None
+    lib.kt_count_block_sparse.argtypes = [
+        u32p, i64, i32p, i64, i64, c_int, i32p, i32p, u8p,
+        i64, i64, i64, i64p, i32p, i64, c_int,
+    ]
+    lib.kt_count_block_sparse.restype = i64
+    lib.kt_count_hashes_sparse.argtypes = [
+        u32p, i64, u64p, i64, i64, c_int, ctypes.c_uint64, i64,
+        i32p, i32p, u8p, i64, i64, i64, i64p, i32p, i64, c_int,
+    ]
+    lib.kt_count_hashes_sparse.restype = i64
+    lib.kt_union_count.argtypes = [
+        u64p, ctypes.c_uint64, u64p, i64, i64, i32p, c_int,
+    ]
+    lib.kt_union_count.restype = None
+    return lib
 
 
 def _threads(threads: int) -> int:
@@ -189,6 +223,186 @@ def pack_rows(reads: list[bytes], lens: np.ndarray, stride: int,
         offs.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
         B, stride,
         out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+    )
+    return out
+
+
+_U64_MAX = 0xFFFFFFFFFFFFFFFF
+
+
+def _ptr(a: np.ndarray, ctype):
+    return a.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def _read_table(reads: list[bytes]):
+    """(concatenated bytes, starts int64 [B], lens int64 [B]) of a batch."""
+    lens = np.fromiter(map(len, reads), np.int64, len(reads))
+    starts = np.zeros(len(reads), dtype=np.int64)
+    if len(reads) > 1:
+        np.cumsum(lens[:-1], out=starts[1:])
+    return b"".join(reads), starts, lens
+
+
+def hash_reads_padded(reads: list[bytes], k: int, kmax: int,
+                      canonical: bool = True, max_hash: int | None = None,
+                      threads: int = 0, dedup_threshold: int = 0,
+                      minimizer_w: int = 0, syncmer_s: int = 0):
+    """Batched hashing to a zero-padded [B, kmax] uint64 matrix + counts
+    int64 [B] (hash != 0, <= max_hash; minimizer or closed-syncmer window
+    selection when ``minimizer_w`` / ``syncmer_s`` > 0).  With
+    ``dedup_threshold`` > 0, rows with more than that many k-mers are
+    sorted + deduplicated (util-db-search.go:874-908) and counts reflect
+    the unique set."""
+    lib = get_lib()
+    concat, starts, lens = _read_table(reads)
+    out = np.zeros((len(reads), kmax), dtype=np.uint64)
+    counts = np.empty(len(reads), dtype=np.int64)
+    lib.kt_hash_reads(
+        concat, _ptr(starts, ctypes.c_int64), _ptr(lens, ctypes.c_int64),
+        len(reads), k, int(canonical),
+        np.uint64(_U64_MAX if max_hash is None else max_hash),
+        _ptr(out, ctypes.c_uint64), kmax, _ptr(counts, ctypes.c_int64),
+        _threads(threads), dedup_threshold, minimizer_w, syncmer_s,
+    )
+    return out, counts
+
+
+def hash_reads_loc(reads: list[bytes], k: int, kmax: int, num_sigs: int,
+                   num_hashes: int = 1, canonical: bool = True,
+                   max_hash: int | None = None, threads: int = 0,
+                   dedup_threshold: int = 0, minimizer_w: int = 0,
+                   syncmer_s: int = 0, out: np.ndarray | None = None):
+    """Fused batched hash + mod: reads -> padded [B, kmax, h] int32 Bloom
+    locations (padding lanes at the sentinel row ``num_sigs``), into
+    ``out`` (e.g. pinned memory) when given, plus the per-read k-mer counts
+    int64 [B]."""
+    lib = get_lib()
+    concat, starts, lens = _read_table(reads)
+    shape = (len(reads), kmax, num_hashes)
+    if out is None:
+        out = np.empty(shape, dtype=np.int32)
+    elif (out.shape != shape or out.dtype != np.int32
+          or not out.flags.c_contiguous):
+        raise ValueError(f"out must be C-contiguous int32 {list(shape)}")
+    counts = np.empty(len(reads), dtype=np.int64)
+    lib.kt_hash_reads_loc(
+        concat, _ptr(starts, ctypes.c_int64), _ptr(lens, ctypes.c_int64),
+        len(reads), k, int(canonical),
+        np.uint64(_U64_MAX if max_hash is None else max_hash),
+        np.uint64(num_sigs), num_hashes, _ptr(out, ctypes.c_int32), kmax,
+        _ptr(counts, ctypes.c_int64), _threads(threads), dedup_threshold,
+        minimizer_w, syncmer_s,
+    )
+    return out, counts
+
+
+def _active(active: np.ndarray | None):
+    """(the uint8 array, its pointer) of a per-read activity mask; NULL
+    for None (every read active)."""
+    if active is None:
+        return None, None
+    active = np.ascontiguousarray(active, dtype=np.uint8)
+    return active, _ptr(active, ctypes.c_uint8)
+
+
+def count_block(bits_ext: np.ndarray, loc: np.ndarray, num_hashes: int,
+                threads: int = 0, active: np.ndarray | None = None
+                ) -> np.ndarray:
+    """[B, W*32] int32 match counts of Bloom locations loc [B, K, h] in
+    bits_ext [S+1, W] (zero sentinel row last); ``active`` (uint8 per read)
+    skips screened reads (zero counts)."""
+    lib = get_lib()
+    W = bits_ext.shape[1]
+    B, K = loc.shape[0], loc.shape[1]
+    bits_c = np.ascontiguousarray(bits_ext, dtype=np.uint32)
+    loc_c = np.ascontiguousarray(loc, dtype=np.int32)
+    out = np.empty((B, W * 32), dtype=np.int32)
+    active, act_p = _active(active)
+    lib.kt_count_block(
+        _ptr(bits_c, ctypes.c_uint32), W, _ptr(loc_c, ctypes.c_int32), B, K,
+        num_hashes, _ptr(out, ctypes.c_int32), _threads(threads), act_p,
+    )
+    return out
+
+
+def _sparse_args(bits_ext, B, cmin_per_read, tmin_eff, idx_out, cnt_out):
+    W = bits_ext.shape[1]
+    bits_c = np.ascontiguousarray(bits_ext, dtype=np.uint32)
+    cmin_c = np.ascontiguousarray(cmin_per_read, dtype=np.int32)
+    tmin_c = np.ascontiguousarray(tmin_eff, dtype=np.int32)
+    if tmin_c.shape[0] != W * 32 or cmin_c.shape[0] != B:
+        raise ValueError(f"tmin_eff needs {W * 32} lanes and cmin_per_read "
+                         f"{B} reads")
+    if idx_out.dtype != np.int64 or cnt_out.dtype != np.int32:
+        raise ValueError("idx_out must be int64 and cnt_out int32")
+    return W, bits_c, cmin_c, tmin_c
+
+
+def count_block_sparse(bits_ext: np.ndarray, loc: np.ndarray,
+                       num_hashes: int, cmin_per_read: np.ndarray,
+                       tmin_eff: np.ndarray, t_offset: int, t_total: int,
+                       budget: int, idx_out: np.ndarray,
+                       cnt_out: np.ndarray, cursor: int, threads: int = 0,
+                       active: np.ndarray | None = None) -> int:
+    """Fused count + threshold + compaction: appends the passing (flat id
+    r * t_total + t_offset + t, count) candidates of loc [B, K, h] into
+    idx_out / cnt_out from ``cursor`` and returns the new total, which may
+    exceed ``budget`` (the caller retries).  Reads with cmin INT32_MAX and
+    lanes with tmin INT32_MAX never pass.  The candidates' order depends
+    on the threads: callers sort them."""
+    lib = get_lib()
+    B, K = loc.shape[0], loc.shape[1]
+    W, bits_c, cmin_c, tmin_c = _sparse_args(bits_ext, B, cmin_per_read,
+                                             tmin_eff, idx_out, cnt_out)
+    loc_c = np.ascontiguousarray(loc, dtype=np.int32)
+    active, act_p = _active(active)
+    return int(lib.kt_count_block_sparse(
+        _ptr(bits_c, ctypes.c_uint32), W, _ptr(loc_c, ctypes.c_int32), B, K,
+        num_hashes, _ptr(cmin_c, ctypes.c_int32),
+        _ptr(tmin_c, ctypes.c_int32), act_p, t_offset, t_total, budget,
+        _ptr(idx_out, ctypes.c_int64), _ptr(cnt_out, ctypes.c_int32),
+        cursor, _threads(threads),
+    ))
+
+
+def count_hashes_sparse(bits_ext: np.ndarray, hashes: np.ndarray,
+                        num_hashes: int, num_sigs: int, row_offset: int,
+                        cmin_per_read: np.ndarray, tmin_eff: np.ndarray,
+                        t_offset: int, t_total: int, budget: int,
+                        idx_out: np.ndarray, cnt_out: np.ndarray,
+                        cursor: int, threads: int = 0,
+                        active: np.ndarray | None = None) -> int:
+    """``count_block_sparse`` on raw uint64 hashes [B, K] of one block of a
+    row-stacked matrix: locations hash % num_sigs + row_offset derive in
+    the kernel; hash 0 marks a padding lane."""
+    lib = get_lib()
+    B, K = hashes.shape
+    W, bits_c, cmin_c, tmin_c = _sparse_args(bits_ext, B, cmin_per_read,
+                                             tmin_eff, idx_out, cnt_out)
+    h_c = np.ascontiguousarray(hashes, dtype=np.uint64)
+    active, act_p = _active(active)
+    return int(lib.kt_count_hashes_sparse(
+        _ptr(bits_c, ctypes.c_uint32), W, _ptr(h_c, ctypes.c_uint64), B, K,
+        num_hashes, num_sigs, row_offset, _ptr(cmin_c, ctypes.c_int32),
+        _ptr(tmin_c, ctypes.c_int32), act_p, t_offset, t_total, budget,
+        _ptr(idx_out, ctypes.c_int64), _ptr(cnt_out, ctypes.c_int32),
+        cursor, _threads(threads),
+    ))
+
+
+def union_count(words: np.ndarray, num_bits: int, hashes: np.ndarray,
+                threads: int = 0) -> np.ndarray:
+    """Per-read count int32 [B] of the k-mers of hashes [B, kmax] (0 =
+    padding) present in a union bitset of ``num_bits`` bits."""
+    lib = get_lib()
+    w = np.ascontiguousarray(words, dtype=np.uint64)
+    h = np.ascontiguousarray(hashes, dtype=np.uint64)
+    B, kmax = h.shape
+    out = np.empty(B, dtype=np.int32)
+    lib.kt_union_count(
+        _ptr(w, ctypes.c_uint64), np.uint64(num_bits),
+        _ptr(h, ctypes.c_uint64), B, kmax, _ptr(out, ctypes.c_int32),
+        _threads(threads),
     )
     return out
 

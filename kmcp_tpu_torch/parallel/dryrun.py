@@ -191,7 +191,7 @@ def run_job(dev, kind: str, args: tuple) -> dict:
         *rest, budget = args
 
         def call(b):
-            return dev.search_async(*rest, b)
+            return dev.search_async(*rest, b).result()
     elif kind == "screened":
         *rest, budget = args
 

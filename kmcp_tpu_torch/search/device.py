@@ -32,15 +32,23 @@ event, and returns a ``SearchHandle`` before the card has finished;
 the JAX streamer's ``_copy_async`` and ``_materialize``
 (kmcp_tpu/search/stream.py:43-62).  On CPU tensors the handle is complete
 when it is made; on a mesh the step waits for the collectives (under gloo
-they cross the host) before its result is copied.
+they cross the host) before its result is copied.  ``search_async``, the
+step on host-hashed locations, returns such a handle too.
+
+``HostDB`` is the host search backend (JAX ``HostDB``, device.py:126-441):
+the same stacked matrix and threshold tables, counted by the port's C++ on
+the host, with no torch tensor.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
 
 from ..index.format import read_block_union, read_block_union_header
+from ..kmer import native
 from .device_step import (
     TailResult,
     batch_slice,
@@ -73,6 +81,7 @@ MESH_SCREEN = ("sharded multi-block DeviceDB needs the block screen "
 # the loc step filters no read by length or k-mer count (JAX
 # device_step.py:892-918): the largest threshold the uint16 layout takes
 LOC_DEDUP = 65534
+INT32_MAX = np.iinfo(np.int32).max
 
 
 def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -615,25 +624,33 @@ class TorchDeviceDB:
                                      bits01, stats=self.tail_stats)
 
     def _host_planes(self, planes, fills):
-        """Host arrays [B, ...] -> this rank's ``d`` slices (all of them
-        off a mesh) as int32 tensors on the device."""
+        """Planes [B, ...], host arrays or int32 tensors already on the
+        device, -> this rank's ``d`` slices (all of them off a mesh) as
+        int32 tensors on the device.  Host arrays go up from pinned memory
+        without blocking."""
         out = []
         for a, fill in zip(planes, fills):
-            t = torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32))
+            t = (a if isinstance(a, torch.Tensor) else torch.from_numpy(
+                np.ascontiguousarray(a, dtype=np.int32)))
             if self.mesh is not None:
                 d_size, _t, d_index, _ti = mesh_place(self.mesh)
                 t = batch_slice(t, d_size, d_index, fill)
-            out.append(t.to(self.device))
+            if t.device.type == "cpu" and self.device.type == "cuda":
+                t = t.pin_memory().to(self.device, non_blocking=True)
+            out.append(t)
         return out
 
-    def search_async(self, loc: np.ndarray, nkmers: np.ndarray,
-                     cand_budget: int) -> tuple[np.ndarray, np.ndarray]:
-        """Host Bloom locations loc [B, K, h] of a one-block DB (invalid
-        windows at the sentinel row ``total_rows``) and their counts
-        nkmers [B] -> count_tail's (meta, aux); on a mesh the whole batch
-        on every rank.  The step of JAX ``search_async`` (device.py:
-        1011-1030, ``_make_search_step``): no read is dropped for its
-        length or its k-mer count, and cmin covers nkmers.max()."""
+    def search_async(self, loc, nkmers: np.ndarray, cand_budget: int
+                     ) -> SearchHandle:
+        """Bloom locations loc [B, K, h] of a one-block DB, hashed on the
+        host (invalid windows at the sentinel row ``total_rows``; a host
+        array, or an int32 tensor already on the device), and their counts
+        nkmers [B] (a host array) -> a ``SearchHandle`` of count_tail's
+        (meta, aux), the whole batch on every rank of a mesh.  The step of
+        JAX ``search_async`` (device.py:1011-1030, ``_make_search_step``):
+        no read is dropped for its length or its k-mer count, and cmin
+        covers nkmers.max().  Off a mesh nothing here waits for the card,
+        as in ``search_reads_async``."""
         if self.n_blocks != 1:
             raise NotImplementedError(
                 "search_async takes one-block DBs; a screened DB takes "
@@ -647,10 +664,10 @@ class TorchDeviceDB:
             (loc, nk_np, np.zeros(n_reads)), (self.total_rows, 0, 0))
         cmin = self.cmin_for(int(nk_np.max(initial=1)))
         if self.mesh is None:
-            return host_result(count_tail_async(
+            return _copy_async(count_tail_async(
                 self.bits_ext, loc_t, nk, lens, cmin, self.thr[0],
                 cand_budget, 0, LOC_DEDUP))
-        return host_result(sharded_count_tail(
+        return _copy_async(sharded_count_tail(
             self.bits_ext, loc_t, nk, lens, cmin, self.thr[0], cand_budget, 0,
             LOC_DEDUP, self.mesh, n_reads))
 
@@ -688,3 +705,196 @@ class TorchDeviceDB:
                                           self.total_rows, self.max_hash,
                                           loc, vals, s_vals, lens_t)
         return loc, nk
+
+
+class HostDB:
+    """The host search backend (``--backend host``): C++ read hashing and
+    sparse match counting with the exact integer thresholds, in the
+    streamer's interface.  Port of kmcp_tpu/search/device.py ``HostDB``
+    (:126-441), its sparse paths: one block hashes to Bloom locations
+    (``hash_reads_loc``) counted by ``count_block_sparse``; several blocks
+    hash once (``hash_reads_padded``) and ``count_hashes_sparse`` counts
+    each block's slice of the stacked matrix, skipping the reads a block's
+    union screen rules out (``screen_active``; ``KMCP_TPU_NO_SCREEN`` set
+    ignores the screens).  Not ported: its dense fallback for native
+    builds without the sparse counters (the port builds its C++ at first
+    use, so they are always there).  Nothing here touches a torch device.
+
+    The result of ``search_reads`` is the flat int64 layout
+    ``[n_cand, ids[budget], counts[budget], nkmers[B]]`` with ids
+    ``read * T + target`` over all blocks' lanes; the candidates come in
+    the counters' thread order, which the streamer's drain sorts."""
+
+    def __init__(self, db, opt):
+        self.db = db
+        self.opt = opt
+        (stacked, names, indices, gsizes, sizes, rows, w, row_offsets) = (
+            _stack_blocks(db)
+        )
+        self.n_blocks = len(db.blocks)
+        self.block_row_offset = row_offsets
+        self.block_num_sigs = [b.meta.num_sigs for b in db.blocks]
+        self.bits_ext = stacked
+        self.total_rows = rows  # also the sentinel row
+        self.w = w
+        self.t_per_block = 32 * w
+        self.names = names
+        self.indices = np.asarray(indices, dtype=np.int64)
+        self.gsizes = np.asarray(gsizes, dtype=np.int64)
+        self.sizes = np.asarray(sizes, dtype=np.int64)
+        # build_tmin_table divides by the size: padding lanes (size 0) take
+        # INT32_MAX, which no count reaches, as in numpy_state
+        real = self.sizes > 0
+        tmin = np.ones(len(self.sizes), dtype=np.int32)
+        tmin[real] = build_tmin_table(self.sizes[real].astype(np.float64),
+                                      opt.min_target_cov)
+        self.tmin_eff = np.where(real, np.maximum(tmin, 1),
+                                 INT32_MAX).astype(np.int32)
+        self._cmin_np: dict[int, np.ndarray] = {}
+        if os.environ.get("KMCP_TPU_NO_SCREEN"):
+            self.block_unions = [None] * self.n_blocks
+        else:
+            self.block_unions = [read_block_union(db.path, b)
+                                 for b in range(self.n_blocks)]
+        self.has_screen = any(u is not None for u in self.block_unions)
+        # the packed union table: one location plane probes every block's
+        # screen in one count_block pass (uniform screen geometry)
+        self.packed_union = (build_packed_union(db, self.n_blocks)
+                             if self.has_screen and self.n_blocks > 1
+                             else None)
+
+    def _cmin(self, n_max: int) -> np.ndarray:
+        n_max = max(64, -(-n_max // 64) * 64)
+        t = self._cmin_np.get(n_max)
+        if t is None:
+            opt = self.opt
+            t = build_cmin_table(n_max, opt.min_kmers, opt.min_query_cov,
+                                 opt.max_fpr, self.db.query_fpr)
+            self._cmin_np[n_max] = t
+        return t
+
+    def search_reads(self, seqs: list[bytes], lens: np.ndarray, lmax: int,
+                     cand_budget: int, dedup_threshold: int = 0,
+                     mates: list[bytes] | None = None) -> np.ndarray:
+        """Search a batch of reads ``seqs`` (padded with empty reads) whose
+        hash rows hold lmax - k + 1 windows -> the flat int64 result.
+        ``lens`` are the lengths the min-length filter reads (for pairs
+        max(len1, len2)).  ``dedup_threshold`` > 0 uniques a row's k-mers
+        past that many in the hash kernel (util-db-search.go:874-908), else
+        reads over the options' threshold are left to the object engine.
+        ``mates``, an interleaved [m1_0, m2_0, m1_1, ...] list of 2B
+        sequences, hashes each mate as its own row (sketch windows must not
+        cross the mate junction) and joins the row pairs, with no dedup.
+        Synchronous (JAX ``HostDB.search_reads_async``); the C++ releases
+        the GIL."""
+        opt, db = self.opt, self.db
+        info = db.info
+        k = max(info.ks)
+        B = len(seqs)
+        kmax = lmax - k + 1
+        h = info.num_hashes
+        sketch = {"minimizer_w": info.minimizer_w if info.minimizer else 0,
+                  "syncmer_s": info.syncmer_s if info.syncmer else 0}
+        hash_kw = dict(canonical=info.canonical, max_hash=db.max_hash,
+                       **sketch)
+        if mates is not None:
+            dedup_threshold = 0
+            kmax_m = max(max(len(s) for s in mates) - k + 1, 1)
+        T_total = self.n_blocks * self.t_per_block
+        idx_out = np.empty(cand_budget, dtype=np.int64)
+        cnt_out = np.empty(cand_budget, dtype=np.int32)
+
+        def read_floor(nkmers):
+            """Per-read count floors; INT32_MAX excludes a read."""
+            cmin = self._cmin(int(nkmers.max(initial=1)))
+            cmin_r = cmin[np.minimum(nkmers, len(cmin) - 1)].astype(np.int32)
+            excl = ~(np.asarray(lens) >= opt.min_query_len)
+            if dedup_threshold <= 0:
+                excl |= nkmers > opt.kmer_dedup_threshold
+            cmin_r[excl] = INT32_MAX
+            return cmin_r
+
+        if self.n_blocks == 1:
+            if mates is not None:
+                # [2B, kmax_m, h] -> [B, 2 kmax_m, h]: a pair's rows are
+                # adjacent in memory, so the join is a reshape
+                loc2, c2 = native.hash_reads_loc(
+                    mates, k, kmax_m, self.total_rows, h, **hash_kw)
+                loc = loc2.reshape(B, 2 * kmax_m, h)
+                counts = c2.reshape(B, 2).sum(axis=1)
+            else:
+                loc, counts = native.hash_reads_loc(
+                    seqs, k, kmax, self.total_rows, h,
+                    dedup_threshold=dedup_threshold, **hash_kw)
+            nkmers = counts.astype(np.int32)
+            n_cand = native.count_block_sparse(
+                self.bits_ext, loc, h, read_floor(nkmers), self.tmin_eff, 0,
+                T_total, cand_budget, idx_out, cnt_out, 0)
+            return self._pack_sparse(n_cand, idx_out, cnt_out, nkmers,
+                                     cand_budget)
+
+        # several blocks: hash once; each block counts its slice of the
+        # target lanes, its locations derived in the kernel
+        if mates is not None:
+            h2, c2 = native.hash_reads_padded(mates, k, kmax_m, **hash_kw)
+            hashes = h2.reshape(B, 2 * kmax_m)
+            counts = c2.reshape(B, 2).sum(axis=1)
+        else:
+            hashes, counts = native.hash_reads_padded(
+                seqs, k, kmax, dedup_threshold=dedup_threshold, **hash_kw)
+        nkmers = counts.astype(np.int32)
+        cmin_r = read_floor(nkmers)
+        active = self._screen(hashes, counts.astype(np.float64))
+        n_cand = 0
+        for b in range(self.n_blocks):
+            t_off = b * self.t_per_block
+            n_cand = native.count_hashes_sparse(
+                self.bits_ext, hashes, h, self.block_num_sigs[b],
+                self.block_row_offset[b], cmin_r,
+                self.tmin_eff[t_off : t_off + self.t_per_block], t_off,
+                T_total, cand_budget, idx_out, cnt_out, n_cand,
+                active=active(b))
+        return self._pack_sparse(n_cand, idx_out, cnt_out, nkmers,
+                                 cand_budget)
+
+    def _screen(self, hashes: np.ndarray, nk: np.ndarray):
+        """block -> the uint8 activity mask of its union screen, or None
+        (JAX ``screen_active``, device.py:273-308): a read passes a block
+        when its union-Bloom hit count reaches the junk-FP band, mean
+        fpr_u n + 3 sigma (and min_kmers), in float64.  With the packed
+        union table one count_block pass, made at the first block that
+        asks, serves every block."""
+        packed: dict = {}
+
+        def active(b: int):
+            u = self.block_unions[b]
+            if u is None:
+                return None
+            words, num_bits, fpr_u = u
+            if self.packed_union is not None:
+                if "mat" not in packed:
+                    U, nbits, _fprs = self.packed_union
+                    loc_u = native.locations(hashes, 1, nbits)
+                    loc_u[hashes[..., None] == 0] = np.int32(nbits)
+                    packed["mat"] = native.count_block(U, loc_u, 1)
+                uc = packed["mat"][:, b]
+            else:
+                uc = native.union_count(words, num_bits, hashes)
+            theta = np.maximum(
+                self.opt.min_kmers,
+                np.ceil(fpr_u * nk + 3.0 * np.sqrt(nk * fpr_u * (1 - fpr_u))),
+            )
+            return (uc >= theta).astype(np.uint8)
+
+        return active
+
+    @staticmethod
+    def _pack_sparse(n_cand, idx_out, cnt_out, nkmers, cand_budget):
+        B = len(nkmers)
+        out = np.empty(1 + 2 * cand_budget + B, dtype=np.int64)
+        out[0] = n_cand
+        ncap = min(n_cand, cand_budget)
+        out[1 : 1 + ncap] = idx_out[:ncap]
+        out[1 + cand_budget : 1 + cand_budget + ncap] = cnt_out[:ncap]
+        out[1 + 2 * cand_budget :] = nkmers
+        return out

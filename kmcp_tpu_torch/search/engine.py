@@ -3,9 +3,13 @@
 The port's copy of kmcp_tpu/search/engine.py.  Given a torch device, a
 block counts with ``TorchBlockCounter`` (search/kernel.py: K2' on a CUDA
 device, its plain version on the CPU), the counterpart of the JAX
-package's ``backend="jax"``; without one, with the NumPy counter, the
-tests' oracle.  There is no ``--low-mem`` row seek: on a device the flag
-is ignored with a warning, as on the JAX backend.  It opens DBs, its own
+package's ``backend="jax"``.  With ``SearchOptions.backend == "host"``
+(and no device) it counts with the C++ counter on the host, the JAX
+package's ``--backend host`` (``Block._counts_host``), and under
+``--low-mem`` reads only the Bloom rows a batch gathers from the block
+files (``Block._counts_low_mem``, row seek); on a device ``--low-mem`` is
+ignored with a warning, as on the JAX backend.  With neither, the NumPy
+counter counts: the tests' oracle.  It opens DBs, its own
 layout or the reference's ``.kmcp`` layout (index/uniki.py), for the
 streamer, searches the reads the streamer hands over (those with more
 k-mers than the dedup threshold), and runs every search the streamer does
@@ -40,8 +44,14 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from ..index.format import read_block_bits, read_block_meta, read_db_info
+from ..index.format import (
+    BlockRowReader,
+    read_block_bits,
+    read_block_meta,
+    read_db_info,
+)
 from ..index.uniki import DB_YML, load_ref_db
+from ..kmer import native
 from ..kmer.nthash import hash_reads_batch
 from ..kmer.sketches import generate_kmers, max_hash_for_scale, unique_sorted
 from .fpr import QueryFPRCache
@@ -67,10 +77,11 @@ class SearchOptions:
     keep_unmatched: bool = False
     name_map: dict[str, str] = field(default_factory=dict)
     load_default_name_map: bool = False
+    backend: str = "numpy"  # numpy (a torch device or NumPy) | host (C++)
     batch_size: int = 8192
     paired_fpr_buf: bool = False
     load_whole_db: bool = False  # read index into RAM instead of mmap
-    low_mem: bool = False  # row seek: not ported; ignored on a device
+    low_mem: bool = False  # host backend: row seek; ignored on a device
 
 
 @dataclass
@@ -97,39 +108,57 @@ class QueryResult:
 
 
 class Block:
-    """One block's metadata and bits; ``device`` (a torch device, or None
-    for the NumPy counter) is where it counts."""
+    """One block's metadata and bits; ``device`` (a torch device, or None)
+    is where it counts.  Without a device, ``host`` counts with the C++
+    counter and ``low_mem`` then seeks the rows from the block file."""
 
     def __init__(self, db_dir: str, block_id: int, load_whole: bool = False,
-                 device=None):
+                 device=None, host: bool = False, low_mem: bool = False):
         self.meta = read_block_meta(db_dir, block_id)
-        self.bits = read_block_bits(db_dir, block_id, mmap=not load_whole)
+        self.low_mem = host and low_mem
+        if self.low_mem:
+            # row seek: the matrix is never mapped, only the rows each
+            # batch gathers are read (util-db-search.go:6975-7176)
+            self.bits = None
+            self.rows = BlockRowReader(db_dir, block_id)
+        else:
+            self.bits = read_block_bits(db_dir, block_id, mmap=not load_whole)
         self.sizes = np.asarray(self.meta.sizes, dtype=np.float64)
         self.device = device
+        self.host = host
         self._counter = None
+        self._bits_ext = None
 
     @classmethod
-    def from_arrays(cls, meta, bits: np.ndarray, device=None) -> "Block":
+    def from_arrays(cls, meta, bits: np.ndarray, device=None,
+                    host: bool = False) -> "Block":
         """Block over an in-memory matrix (reference-layout DBs load
         through the .uniki converter, index/uniki.py)."""
         self = cls.__new__(cls)
         self.meta = meta
+        self.low_mem = False
         self.bits = bits
         self.sizes = np.asarray(meta.sizes, dtype=np.float64)
         self.device = device
+        self.host = host
         self._counter = None
+        self._bits_ext = None
         return self
 
     def counts(self, hashes, mask, num_hashes) -> np.ndarray:
-        """[B, num_targets] int32 counts: on the block's device, or with
-        the NumPy counter in chunks of reads whose unpacked bits stay near
-        COUNT_CHUNK_BYTES."""
+        """[B, num_targets] int32 counts: on the block's device, with the
+        C++ counter, or with the NumPy counter in chunks of reads whose
+        unpacked bits stay near COUNT_CHUNK_BYTES."""
         if self.device is not None:
             if self._counter is None:
                 self._counter = TorchBlockCounter(
                     np.ascontiguousarray(self.bits), num_hashes, self.device
                 )
             c = self._counter(hashes, mask)
+        elif self.low_mem:
+            c = self._counts_low_mem(hashes, mask, num_hashes)
+        elif self.host:
+            c = self._counts_host(hashes, mask, num_hashes)
         else:
             B, K = hashes.shape
             T = self.bits.shape[1] * 32
@@ -143,6 +172,36 @@ class Block:
                                                              np.int32)
         return c[:, : self.meta.num_targets]
 
+    def _counts_host(self, hashes, mask, num_hashes) -> np.ndarray:
+        """Bloom locations (``kt_locations``) counted by ``kt_count_block``
+        against the matrix with a zero sentinel row appended, where the
+        masked windows point (JAX engine.py:149-164)."""
+        if self._bits_ext is None:
+            b = np.ascontiguousarray(self.bits)
+            self._bits_ext = np.concatenate(
+                [b, np.zeros((1, b.shape[1]), np.uint32)], axis=0
+            )
+        S = self.meta.num_sigs
+        loc = native.locations(hashes, num_hashes, S)
+        loc[~mask] = S
+        return native.count_block(self._bits_ext, loc, num_hashes)
+
+    def _counts_low_mem(self, hashes, mask, num_hashes) -> np.ndarray:
+        """Gather only the batch's unique Bloom rows from disk, then count
+        against the small [n_unique(+1), W] matrix with remapped
+        locations: the resident counter's counts (JAX engine.py:166-198)."""
+        S = self.meta.num_sigs
+        loc = native.locations(hashes, num_hashes, S)
+        loc = np.where(mask[..., None], loc, np.int64(S))
+        uniq, inv = np.unique(loc, return_inverse=True)
+        n_real = len(uniq) - 1 if len(uniq) and uniq[-1] == S else len(uniq)
+        small = self.rows.gather(uniq[:n_real])
+        small_ext = np.concatenate(
+            [small, np.zeros((1, small.shape[1]), np.uint32)], axis=0
+        )  # sentinel row at index n_real (where S sorted, if present)
+        loc_small = inv.reshape(loc.shape).astype(np.int32)
+        return native.count_block(small_ext, loc_small, num_hashes)
+
 
 class SearchDB:
     """One database directory: the port's layout (db.json) or the
@@ -151,14 +210,16 @@ class SearchDB:
     def __init__(self, db_dir: str, opt: SearchOptions, device=None):
         self.path = db_dir
         self.opt = opt
+        host = opt.backend == "host"
         if os.path.isfile(os.path.join(db_dir, DB_YML)):
             self.info, ref_blocks = load_ref_db(db_dir)
-            self.blocks = [Block.from_arrays(m, b, device)
+            self.blocks = [Block.from_arrays(m, b, device, host)
                            for m, b in ref_blocks]
         else:
             self.info = read_db_info(db_dir)
             self.blocks = [
-                Block(db_dir, i, opt.load_whole_db, device)
+                Block(db_dir, i, opt.load_whole_db, device, host,
+                      opt.low_mem)
                 for i in range(len(self.info.blocks))
             ]
         buf = 499 if opt.paired_fpr_buf else 249
@@ -241,17 +302,24 @@ def _top_n_scores(matches: list[Match], n: int, sort_by: str) -> list[Match]:
 
 class SearchEngine:
     """Multi-database batched search; ``device`` (a torch device) is where
-    the blocks count, None for the NumPy counter."""
+    the blocks count; without one they count with the C++ counter when
+    ``opt.backend`` is "host", else with the NumPy counter."""
 
     def __init__(self, db_dirs: list[str], opt: SearchOptions, device=None):
         self.opt = opt
+        if opt.backend not in ("numpy", "host"):
+            raise ValueError(f"backend must be numpy or host, got "
+                             f"{opt.backend!r}")
+        if opt.backend == "host" and device is not None:
+            raise ValueError("the host backend counts on the host: give no "
+                             "torch device")
         if opt.low_mem and device is not None:
             # the blocks live in device memory, so row seek cannot apply:
             # say so rather than drop the flag silently
             print(
                 "[search] warning: --low-mem is ignored on a torch device "
                 "(index blocks are materialized in device memory); use "
-                "kmcp_tpu's --backend host for row-seek mode",
+                "--backend host for row-seek mode",
                 file=sys.stderr,
             )
         self.dbs = [SearchDB(d, opt, device) for d in db_dirs]

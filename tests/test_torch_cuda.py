@@ -13,8 +13,9 @@ dry run on the card (a world of one rank on nccl, two ranks sharing the
 card over gloo) against the single-device run, K5' and K6' on pair lists
 padded as the screened tail pads them, and the streamer with batches in
 flight (every tail flushed under ``set_sync_debug_mode("error")``, whole
-runs at depths 1 and 4) against its CPU run, and locations outside the
-table raising at ``result()`` with no fault on the card.  Marked ``cuda``:
+runs at depths 1 and 4) against its CPU run, host-hashed batches
+(``KMCP_TPU_DEVICE_HASH=0``) likewise, and locations outside the table
+raising at ``result()`` with no fault on the card.  Marked ``cuda``:
 they skip without a card and run on the GPU machine with
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
@@ -710,3 +711,67 @@ def test_inflight_stream_on_card(cuda, tmp_path, monkeypatch):
         for depth in (1, 4):
             got = tsv(streamer(name, p2, paired, cuda, depth), reads, paired)
             assert got == want, (name, p2, paired, depth)
+
+
+def test_host_hash_stream_on_card(cuda, tmp_path, monkeypatch):
+    """Host hashing on the card (``KMCP_TPU_DEVICE_HASH=0``): one batch of
+    the dense and three-hash DBs, single-end and paired, hashed by the C++
+    into pinned memory and flushed under ``set_sync_debug_mode("error")``,
+    raises nothing and drains to the CPU run's bytes; whole runs of
+    256-read batches at depths 1 and 4 write the CPU run's TSV, which is
+    also the device-hash run's."""
+    import io
+
+    from kmcp_tpu_torch.search import stream
+    from kmcp_tpu_torch.search.engine import SearchEngine, SearchOptions
+    from kmcp_tpu_torch.search.stream import TorchStreamSearcher
+
+    monkeypatch.setattr(stream, "MIN_BATCH", 256)
+    monkeypatch.setenv("KMCP_TPU_DEVICE_HASH", "0")
+    rng = np.random.default_rng(10)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    genomes = [rng.choice(bases, size=30000).tobytes() for _ in range(4)]
+    dbs = {"dense": _port_db(tmp_path / "d1", genomes),
+           "three": _port_db(tmp_path / "d3", genomes, num_hashes=3)}
+    cases = [("dense", False), ("three", False), ("dense", True)]
+    single = _stream_reads(rng, genomes, 1100, False)
+    pairs = _stream_reads(rng, genomes, 1100, True)
+
+    def streamer(name, paired, dev, depth=4):
+        opt = SearchOptions(batch_size=256, paired_fpr_buf=paired)
+        return TorchStreamSearcher(SearchEngine([dbs[name]], opt, dev), dev,
+                                   in_flight=depth)
+
+    def tsv(st, reads, paired):
+        buf = io.StringIO()
+        st.run(iter(reads), buf, paired=paired)
+        return buf.getvalue()
+
+    cpu = torch.device("cpu")
+    sts = [streamer(n, pd, cuda) for n, pd in cases]
+    assert all(st.host_hash for st in sts)
+    states = []
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for st, (_n, paired) in zip(sts, cases):
+            reads = pairs if paired else single
+            states.append(st._flush(reads[:256], 256, 0, paired))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for st, state, (name, paired) in zip(sts, states, cases):
+        fmt = (stream._fmt_ratio_memo(), stream._fmt_ratio_memo(), {})
+        got = io.StringIO()
+        st._drain(state, got, fmt)
+        reads = (pairs if paired else single)[:256]
+        want = tsv(streamer(name, paired, cpu), reads, paired)
+        assert got.getvalue() == want, (name, paired)
+    for name, paired in cases:
+        reads = pairs if paired else single
+        want = tsv(streamer(name, paired, cpu), reads, paired)
+        for depth in (1, 4):
+            got = tsv(streamer(name, paired, cuda, depth), reads, paired)
+            assert got == want, (name, paired, depth)
+        monkeypatch.setenv("KMCP_TPU_DEVICE_HASH", "1")
+        assert tsv(streamer(name, paired, cuda), reads, paired) == want
+        monkeypatch.setenv("KMCP_TPU_DEVICE_HASH", "0")
