@@ -89,7 +89,10 @@ raises, exit non-zero):
      DB; each TSV byte-identical to the run with the kernels bound to their
      plain versions on the card, the route "engine", K2' launched; then a
      stage-timed rerun of each (host hashing, locations, K2', the D2H of
-     the counts, host extraction, writer);
+     the counts, host extraction, writer); and the 4,096 reads on phase
+     6's DB with ``KMCP_TPU_NO_SCREEN=1``: the streamer declines it, the
+     object engine counts every block (K2' only, no union packing), the
+     TSV byte-identical to ``--backend host``'s (HostDB without unions);
  10. the pipeline from the card's TSVs: phase 4's single-end TSV and phase
      7's paired dense TSV through the port's ``profile`` and ``merge`` (the
      command line's entry point, in process), with a taxdump written here
@@ -1243,6 +1246,20 @@ def phase_sketch(torch, dev, genome_src: str, pool, reads: str,
     return out
 
 
+@contextlib.contextmanager
+def env_var(name: str, value: str):
+    """The environment variable ``name`` set to ``value`` for the block."""
+    old = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ[name]
+        else:
+            os.environ[name] = old
+
+
 def fastq_every(src: str, dst: str, every: int) -> None:
     """Every ``every``-th record of a FASTQ file, the first one included."""
     with open(src) as f, open(dst, "w") as g:
@@ -1265,7 +1282,10 @@ def phase_engine(torch, dev, genome_src: str, pool, wide_db: str,
       DB; the same reads on the wide and screened DBs at once (a
       directory of links to both: the multi-DB intersection);
     - ENGINE_READS of phase 7's pairs with ``--try-se`` on the wide DB;
-    then a stage-timed rerun of each."""
+    then a stage-timed rerun of each; and ENGINE_READS of phase 4's reads
+    on the screened DB with ``KMCP_TPU_NO_SCREEN=1`` (route "engine", K2'
+    and no other kernel, HostDB without its unions), byte-identical to
+    ``--backend host``'s run under the same variable."""
     from kmcp_tpu_torch.cli import main as cli
     from kmcp_tpu_torch.search.engine import SearchOptions
 
@@ -1360,6 +1380,34 @@ def phase_engine(torch, dev, genome_src: str, pool, wide_db: str,
             + f"; run_search wall {timed['wall']:.3f}")
         out["launches"][name] = la
         out["breakdown"][name] = acc
+
+    # KMCP_TPU_NO_SCREEN turns the union screens off (ROADMAP C1): the
+    # streamer declines phase 6's DB, so the object engine counts all 32
+    # blocks with K2', as --backend host's HostDB does without its unions
+    tag = "phase 9 no-screen"
+    with env_var("KMCP_TPU_NO_SCREEN", "1"):
+        run = searched(screened_db, os.path.join(root, "no-screen.cuda.tsv"),
+                       files=[few], device=dev)
+        host = host_searched(torch, f"{tag} host", screened_db,
+                             os.path.join(root, "no-screen.host.tsv"),
+                             files=[few])
+    la = run["launches"]
+    if run["stats"]["route"] != "engine" or host["stats"]["route"] != "stream":
+        raise AssertionError(f"{tag}: routes {run['stats']['route']}, "
+                             f"host {host['stats']['route']}")
+    if (dev.type == "cuda" and not la["count_mask"]) or any(
+            la[n] for n in ("hash_loc", "pair_count", "group_count")):
+        raise AssertionError(f"{tag}: launches {la}")
+    if host["stats"]["union_rows"]:
+        raise AssertionError(f"{tag}: HostDB kept its unions")
+    if run["tsv"] != host["tsv"] or run["totals"] != host["totals"]:
+        raise AssertionError(f"{tag}: TSV differs from --backend host's")
+    log(f"{tag}: route engine, TSV byte-identical to --backend host's "
+        f"(HostDB without its unions; {len(run['tsv'])} bytes, "
+        f"{run['totals'][1]}/{run['totals'][0]} reads matched); "
+        f"wall {run['wall']:.3f} s, host {host['wall']:.3f} s; "
+        f"launches {la}")
+    out["launches"]["no-screen"] = la
     return out
 
 
@@ -2036,20 +2084,6 @@ def host_info() -> str:
             f"{native._threads(0)}")
 
 
-@contextlib.contextmanager
-def device_hash(value: str):
-    """KMCP_TPU_DEVICE_HASH set to ``value`` for the block."""
-    old = os.environ.get("KMCP_TPU_DEVICE_HASH")
-    os.environ["KMCP_TPU_DEVICE_HASH"] = value
-    try:
-        yield
-    finally:
-        if old is None:
-            del os.environ["KMCP_TPU_DEVICE_HASH"]
-        else:
-            os.environ["KMCP_TPU_DEVICE_HASH"] = old
-
-
 def host_searched(torch, tag: str, db: str, out: str, opt=None,
                   **kwargs) -> dict:
     """``searched`` with ``opt`` (default options) on backend "host", as
@@ -2189,7 +2223,8 @@ def phase_host(torch, dev, smi: str, cells: list, wide_ks: str, pool,
         walls: dict = {}
         for turn, (where, depth) in enumerate(A15_TURNS):
             tag = f"phase 13 (d) {name} {where} hash depth {depth}"
-            with device_hash("1" if where == "device" else "0"):
+            with env_var("KMCP_TPU_DEVICE_HASH",
+                         "1" if where == "device" else "0"):
                 run = searched(db, os.path.join(root, f"a15.{name}.{turn}"
                                                 ".tsv"), files=[path],
                                device=dev, in_flight=depth)

@@ -10,7 +10,9 @@ DBs without union screens, non-canonical DBs) runs the object engine's
 batch loop (:180-208), whose blocks count on the same device.  With the
 host backend (``--backend host``) the streamer runs ``HostDB`` and the
 object engine the C++ counter, with row seek under ``--low-mem``; no torch
-device is opened.
+device is opened.  With ``verbose`` the progress lines on stderr are
+kmcp_tpu's, word for word; only the main-parameters block differs, naming
+the device and the route.
 """
 
 from __future__ import annotations
@@ -89,9 +91,11 @@ def resolve_device(device) -> torch.device:
 
 
 def run_engine(engine: SearchEngine, queries, out,
-               batch_queries: int = 8192) -> tuple[int, int]:
+               batch_queries: int = 8192, progress=None) -> tuple[int, int]:
     """The object engine's batch loop: search ``queries`` in batches of
-    ``batch_queries`` and write their rows; returns (total, matched)."""
+    ``batch_queries`` and write their rows; returns (total, matched).
+    ``progress``, when given, is called with the queries done after each
+    batch is written."""
     total = matched = 0
     it = iter(queries)
     while batch := list(islice(it, batch_queries)):
@@ -99,7 +103,32 @@ def run_engine(engine: SearchEngine, queries, out,
                              engine.opt.keep_unmatched)
         total += t
         matched += m
+        if progress is not None:
+            progress(total)
     return total, matched
+
+
+def _mqpm(done: int, t0: float) -> float | None:
+    """Million queries a minute since ``t0``, None before the clock
+    moves."""
+    el = time.time() - t0
+    return done / 1e6 / (el / 60) if el > 0 else None
+
+
+def _stream_progress(done: int, t0: float) -> None:
+    """kmcp_tpu's line for each drained batch (commands/search.py:147-155,
+    the reference's every-8192-queries log)."""
+    rate = _mqpm(done, t0)
+    if rate is not None:
+        print(f"[search] {done} queries done at {rate:.3f} M queries/min",
+              file=sys.stderr)
+
+
+def _engine_progress(done: int, t0: float) -> None:
+    """kmcp_tpu's line for each object-engine batch, overwritten in place
+    by the next (a carriage return first; :191-199)."""
+    print(f"\rprocessed queries: {done}, speed: {_mqpm(done, t0) or 0:.3f} "
+          "million queries per minute", end="", file=sys.stderr)
 
 
 def run_search(
@@ -178,24 +207,30 @@ def run_search(
     try:
         if not no_header_row:
             out.write(HEADER)
+        # stderr as kmcp_tpu's run_search writes it (commands/search.py:
+        # 140-216), with its t0 and units
         if streamer is not None:
-            total, matched = streamer.run(queries, out, paired=paired)
+            total, matched = streamer.run(
+                queries, out, paired=paired,
+                progress=(lambda n: _stream_progress(n, t0)) if verbose
+                else None)
         else:
-            total, matched = run_engine(engine, queries, out, batch_queries)
+            total, matched = run_engine(
+                engine, queries, out, batch_queries,
+                (lambda n: _engine_progress(n, t0)) if verbose else None)
+        if verbose:
+            pct = matched / total * 100 if total else 0.0
+            if streamer is not None:
+                print(f"[search] processed {total} queries at "
+                      f"{_mqpm(total, t0) or 0:.3f} M queries/min "
+                      f"(streaming); {pct:.4f}% matched", file=sys.stderr)
+            else:
+                print(f"\n[search] {pct:.4f}% ({matched}/{total}) queries "
+                      "matched", file=sys.stderr)
         write_stats(out, total, matched)
     finally:
         if out is not sys.stdout:
             out.close()
-    if verbose:
-        el = time.time() - t0
-        print(
-            f"[search] processed {total} queries at "
-            f"{total / el if el > 0 else 0:.1f} queries/s on "
-            f"{'the host' if dev is None else dev} "
-            f"({route}); "
-            f"{matched / total * 100 if total else 0.0:.4f}% matched",
-            file=sys.stderr,
-        )
     if stats is not None:
         stats.update(route=route, backend=opt.backend)
         if streamer is not None:

@@ -84,6 +84,15 @@ LOC_DEDUP = 65534
 INT32_MAX = np.iinfo(np.int32).max
 
 
+def screen_off() -> bool:
+    """True when ``KMCP_TPU_NO_SCREEN`` is set to any non-empty value: the
+    union screens are off on every route, as in kmcp_tpu (stream.py:258,
+    device.py:164, :568).  The card's streamer then declines a multi-block
+    DB (stream.usable), a mesh refuses one (``check_mesh_db``),
+    ``numpy_state`` packs no union table and ``HostDB`` drops its unions."""
+    return bool(os.environ.get("KMCP_TPU_NO_SCREEN"))
+
+
 def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     """A host array as a tensor on ``device``.  To a CUDA device it goes
     from pinned memory without blocking: a copy from pageable memory waits
@@ -251,13 +260,15 @@ def check_mesh_db(db, t_size: int):
     """Raise the JAX package's errors for a DB that a mesh of ``t_size``
     target shards cannot hold (device.py:489-507, :556-557), in its order:
     blocks of unequal row counts, blocks that do not divide t, a
-    multi-block DB without the screen."""
+    multi-block DB without the screen (or with it turned off,
+    ``screen_off``)."""
     n_blocks = len(db.blocks)
     if n_blocks == 1:
         return
     if len({b.bits.shape[0] for b in db.blocks}) != 1:
         raise ValueError(MESH_GEOMETRY)
-    _check_mesh_blocks(n_blocks, t_size, two_pass_ready(db))
+    _check_mesh_blocks(n_blocks, t_size,
+                       two_pass_ready(db) and not screen_off())
 
 
 def _check_mesh_blocks(n_blocks: int, t_size: int, screened: bool):
@@ -330,9 +341,11 @@ def sketch_kind(info):
 def numpy_state(db, opt) -> dict:
     """The arrays a TorchDeviceDB is built from, straight from the index
     (``_stack_blocks`` + ``build_tmin_table``, and for a multi-block DB the
-    packed union table of ``build_packed_union``)."""
+    packed union table of ``build_packed_union``; none with the screen
+    off, ``screen_off``, when a multi-block DB raises as one without
+    screens does)."""
     n_blocks = len(db.blocks)
-    if n_blocks > 1 and not two_pass_ready(db):
+    if n_blocks > 1 and (screen_off() or not two_pass_ready(db)):
         raise NotImplementedError(MULTI_BLOCK_NEEDS)
     stacked, names, indices, gsizes, sizes, _rows, _w, _offs = (
         _stack_blocks(db)
@@ -751,7 +764,7 @@ class HostDB:
         self.tmin_eff = np.where(real, np.maximum(tmin, 1),
                                  INT32_MAX).astype(np.int32)
         self._cmin_np: dict[int, np.ndarray] = {}
-        if os.environ.get("KMCP_TPU_NO_SCREEN"):
+        if screen_off():
             self.block_unions = [None] * self.n_blocks
         else:
             self.block_unions = [read_block_union(db.path, b)

@@ -49,7 +49,6 @@ from __future__ import annotations
 
 import concurrent.futures as cf
 import os
-import sys
 from collections import deque
 from itertools import islice
 
@@ -57,7 +56,7 @@ import numpy as np
 import torch
 
 from ..kmer import native
-from .device import HostDB, TorchDeviceDB, two_pass_ready
+from .device import HostDB, TorchDeviceDB, screen_off, two_pass_ready
 from .engine import QueryResult, SearchEngine
 from .tsv import write_results
 
@@ -144,9 +143,10 @@ def usable(engine: SearchEngine, paired: bool = False) -> bool:
     on the object engine.  The JAX streamer's gates (kmcp_tpu/search/
     stream.py:195-280) for ``engine.opt.backend``: the host backend
     streams every sketch DB, multi-block DBs, pairs and non-canonical
-    DBs; the device streams a one-block DB (a plain one, or
-    a sketch DB single-end, syncmers with s < k) or a multi-block
-    ``--block-screen --uniform-sigs`` DB, canonical (K1' hashes
+    DBs; the device streams a one-block DB (a plain one, or a sketch DB
+    single-end, syncmers with s < k, under ``KMCP_TPU_DEVICE_HASH`` "1")
+    or a multi-block ``--block-screen --uniform-sigs`` DB with its
+    screens on (``screen_off``) under "1", canonical (K1' hashes
     canonically; ROADMAP C) within the uint16 aux layout; with host
     hashing (``host_hash``) one-block plain k-mer DBs only, of either
     strand mode (the host hash honours the flag)."""
@@ -170,17 +170,21 @@ def usable(engine: SearchEngine, paired: bool = False) -> bool:
         return one_block and not db.is_sketch
     if not db.info.canonical:
         return False
+    # window selection and the screened tail need K1' hashing: kmcp_tpu's
+    # streamer declines both under "scan" too (stream.py:221, :256)
+    k1_hash = os.environ.get("KMCP_TPU_DEVICE_HASH", "1") == "1"
     if db.is_sketch:
         # window selection runs on the dense tail of single-end rows
         # (device.py ``_sketch_locations``): a paired row would select
         # across the mate junction
-        if paired or len(db.blocks) != 1:
+        if paired or len(db.blocks) != 1 or not k1_hash:
             return False
         if db.info.syncmer and db.info.syncmer_s >= max(db.info.ks):
             return False
     if len(db.blocks) == 1:
         return one_block
-    return two_pass_ready(db)
+    # the screened tail needs the union screens on (stream.py:258)
+    return two_pass_ready(db) and not screen_off() and k1_hash
 
 
 class TorchStreamSearcher:
@@ -263,12 +267,6 @@ class TorchStreamSearcher:
                 drain()
         while pending:
             drain()
-        if self.slow_rows:
-            print(
-                f"[search] {self.slow_rows} reads over the k-mer dedup "
-                "threshold were searched by the object engine",
-                file=sys.stderr,
-            )
         return total, matched
 
     def _flush(self, batch, batch_size, idx0, paired=False) -> dict:

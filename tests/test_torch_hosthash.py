@@ -160,7 +160,8 @@ def test_budget_overflow_retry(world, tmp_path, monkeypatch):
 
 def test_routes(world, tmp_path, monkeypatch):
     """Multi-block and sketch DBs take the object engine on the host-hash
-    branch; "1" and "scan" hash on the device."""
+    branch, and sketch DBs under "scan" too, as kmcp_tpu's streamer
+    declines them (stream.py:221); "1" and "scan" hash on the device."""
     def route(key, backend="numpy"):
         stats: dict = {}
         run_search(world[key], [world["few"]], device="cpu",
@@ -173,8 +174,8 @@ def test_routes(world, tmp_path, monkeypatch):
                         ("scan", "device")):
         monkeypatch.setenv("KMCP_TPU_DEVICE_HASH", value)
         assert route("one") == ("stream", want)
-        assert route("minimizer")[0] == ("engine" if want == "host"
-                                         else "stream")
+        assert route("minimizer")[0] == ("stream" if value == "1"
+                                         else "engine")
         assert route("multi") == ("engine", None)
         assert route("one", backend="host") == ("stream", "host")
     monkeypatch.setenv("KMCP_TPU_DEVICE_HASH", "0")

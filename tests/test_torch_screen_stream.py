@@ -187,3 +187,168 @@ def test_state_from_jax_screened_device_db(tmp_path, pass2):
         assert 0 < meta[0] <= budget
         np.testing.assert_array_equal(meta, np.asarray(want[0]))
         np.testing.assert_array_equal(aux, np.asarray(want[1]))
+
+
+class _OneRankMesh:
+    """The face of a ("d", "t") DeviceMesh of one rank that
+    ``TorchDeviceDB(mesh=...)`` reads before it opens anything."""
+
+    mesh_dim_names = ("d", "t")
+
+    def get_coordinate(self):
+        return (0, 0)
+
+    def size(self, dim):
+        return 1
+
+
+def no_screen_input(tmp_path):
+    """The 4-block DB of test_screened_stream_matches_host[4-1] and 3,000
+    random 150 bp reads, then 200 of ``screened_reads``, as a FASTQ: at
+    -t 0.31 the screen's theta drops junk reads' false-positive hits."""
+    rng = np.random.default_rng(53)
+    genomes = uneven_genomes(rng, [30000, 42000, 36000, 30000])
+    db = screened_db(tmp_path, genomes, 4)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    reads = [(f"j{i}", rng.choice(bases, size=150).tobytes())
+             for i in range(3000)]
+    reads += [(rid, seq) for rid, seq, _ in screened_reads(rng, genomes, 200)]
+    fq = tmp_path / "reads.fq"
+    with open(fq, "w") as f:
+        for rid, seq in reads:
+            f.write(f"@{rid}\n{seq.decode()}\n+\n{'I' * len(seq)}\n")
+    return db, str(fq)
+
+
+def _rows_by_query(tsv: bytes) -> dict:
+    rows: dict = {}
+    for line in tsv.decode().splitlines():
+        if not line.startswith("#"):
+            rows.setdefault(line.split("\t")[0], []).append(line)
+    return rows
+
+
+def test_no_screen_takes_object_engine(tmp_path, monkeypatch):
+    """``KMCP_TPU_NO_SCREEN`` turns the union screens off on every route,
+    as in kmcp_tpu: the card's streamer declines the multi-block DB, so
+    the object engine counts every block, byte-identical to kmcp_tpu's
+    object engine (which its device route runs under the variable); the
+    port's ``--backend host`` (HostDB without its unions) is
+    byte-identical to kmcp_tpu's; a mesh and ``numpy_state`` refuse the DB
+    with the JAX package's messages.  Without the variable the screened
+    stream drops the junk reads' false-positive hits again."""
+    import jax
+    from jax.sharding import Mesh
+
+    from kmcp_tpu.commands.search import run_search as run_search_jax
+    from kmcp_tpu_torch.search.device import (
+        MESH_SCREEN,
+        check_mesh_db,
+        numpy_state,
+    )
+    from kmcp_tpu_torch.search.stream import usable
+
+    db, fq = no_screen_input(tmp_path)
+    kw = dict(batch_size=128, min_query_cov=0.31)
+    opt = port_engine.SearchOptions(**kw)
+
+    def port(name, opt):
+        stats: dict = {}
+        out = tmp_path / name
+        run_search(db, [fq], out_file=str(out), device="cpu", verbose=False,
+                   stats=stats, opt=opt)
+        return out.read_bytes(), stats
+
+    def jax_package(name, backend):
+        out = tmp_path / name
+        run_search_jax(db, [fq], out_file=str(out), verbose=False,
+                       opt=SearchOptions(backend=backend, **kw))
+        return out.read_bytes()
+
+    monkeypatch.setenv("KMCP_TPU_NO_SCREEN", "1")
+    engine = port_engine.SearchEngine([db], opt)
+    assert not usable(engine)
+    got, stats = port("card.tsv", opt)
+    assert stats["route"] == "engine"
+    assert got == jax_package("jax_engine.tsv", "numpy")
+    host, host_stats = port("host.tsv", port_engine.SearchOptions(
+        backend="host", **kw))
+    assert host_stats["route"] == "stream" and host_stats["union_rows"] == 0
+    assert host == jax_package("jax_host.tsv", "host")
+    assert got.count(b"\n") > 300
+    # kmcp_tpu's streamer and its object engine part on one read: its
+    # QueryFPRCache keys (n, k) as (n, min(k, n - k)), so r138's 82 of 130
+    # k-mers in g3 chunk 2 read the FPR of a junk read's 48 (3.6478e-02,
+    # over max_fpr 0.01); the engine drops that match, the streamer (cmin
+    # passes 82) writes it with that FPR
+    want, have = _rows_by_query(host), _rows_by_query(got)
+    assert [q for q in want if want[q] != have.get(q)] == ["r138"]
+    def no_hits(rows):  # column 4 is the query's hit count
+        return {tuple(r.split("\t")[:4] + r.split("\t")[5:]) for r in rows}
+
+    extra = no_hits(want["r138"]) - no_hits(have["r138"])
+    assert [(r[4], r[5], r[3]) for r in extra] == [("g3", "2", "3.6478e-02")]
+
+    pdb = engine.dbs[0]
+    with pytest.raises(ValueError) as jerr:
+        DeviceDB(SearchEngine([db], SearchOptions(backend="jax")).dbs[0],
+                 SearchOptions(backend="jax"),
+                 mesh=Mesh(np.array(jax.devices()[:1]).reshape(1, 1),
+                           ("d", "t")))
+    assert str(jerr.value) == MESH_SCREEN
+    with pytest.raises(ValueError) as perr:
+        check_mesh_db(pdb, 1)
+    assert str(perr.value) == MESH_SCREEN
+    with pytest.raises(ValueError) as perr:
+        TorchDeviceDB(pdb, opt, "cpu", mesh=_OneRankMesh())
+    assert str(perr.value) == MESH_SCREEN
+    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+        numpy_state(pdb, opt)
+
+    monkeypatch.delenv("KMCP_TPU_NO_SCREEN")
+    assert usable(port_engine.SearchEngine([db], opt))
+    screened, stats = port("screened.tsv", opt)
+    assert stats["route"] == "stream" and stats["union_rows"] > 0
+    assert screened.count(b"\n") < got.count(b"\n")
+    check_mesh_db(pdb, 1)
+    # kmcp_tpu's streamer takes a multi-block DB only on its device hash
+    monkeypatch.setenv("KMCP_TPU_DEVICE_HASH", "scan")
+    assert not usable(port_engine.SearchEngine([db], opt))
+
+
+@pytest.fixture(scope="module")
+def screened4(tmp_path_factory):
+    """test_screened_stream_matches_host[4-1]'s DB and reads, and the
+    --backend host TSV of the reads."""
+    rng = np.random.default_rng(53)
+    genomes = uneven_genomes(rng, [30000, 42000, 36000, 30000])
+    db = screened_db(tmp_path_factory.mktemp("screened4"), genomes, 4)
+    reads = screened_reads(rng, genomes)
+    return db, reads, stream_tsv(db, reads, "host")[0]
+
+
+@pytest.mark.parametrize("pass2,dedup,env,want", [
+    ("auto", 256, None, "pair"),
+    ("auto", 300, None, "pair"),
+    ("pair", 256, None, "pair"),
+    ("gemm", 256, None, "gemm"),
+    ("auto", 256, "1", "pair"),
+    ("gemm", 300, None, "kmer_dedup_threshold <= 256"),
+    ("xla", 256, None, "must be auto, pair or gemm"),
+])
+def test_pass2_argument(screened4, monkeypatch, pass2, dedup, env, want):
+    """``pass2`` picks the pass-2 kernel of the screened tail: "auto" is
+    ``pass2_kernel``'s measured rule (K5'), "pair" K5', "gemm" K6' while
+    row multiplicities fit bf16; the TSV is --backend host's whichever
+    kernel counts.  ``KMCP_TPU_GEMM_PAIR``, kmcp_tpu's TPU switch between
+    its pass-2 kernels, is not read (ROADMAP A10)."""
+    db, reads, host = screened4
+    if env is not None:
+        monkeypatch.setenv("KMCP_TPU_GEMM_PAIR", env)
+    if pass2 == "xla" or dedup > 256 and pass2 == "gemm":
+        with pytest.raises(ValueError, match=want):
+            port_tsv(db, reads, pass2, kmer_dedup_threshold=dedup)
+        return
+    got, st = port_tsv(db, reads, pass2, kmer_dedup_threshold=dedup)
+    assert st.dev.pass2 == want
+    assert got == host

@@ -220,3 +220,33 @@ def test_sketch_stream_matches_host(tmp_path, sketch):
     assert stats["route"] == "stream"
     assert stats["slow_rows"] == sum(len(r) == 500 for r in reads) > 0
     assert got.count(b"\n") > 150
+
+
+@pytest.mark.parametrize("sketch", ["minimizer", "syncmer"])
+def test_sketch_db_needs_k1_hash(tmp_path, monkeypatch, sketch):
+    """Window selection rides K1''s value planes: with
+    ``KMCP_TPU_DEVICE_HASH`` anything but "1" ("scan" or host hashing "0")
+    the streamer declines a sketch DB, as kmcp_tpu's does
+    (stream.py:221), and the object engine's TSV is kmcp_tpu's."""
+    from kmcp_tpu_torch.search.stream import usable
+
+    db, genomes, rng = sketch_db(tmp_path, sketch)
+    reads = sketch_reads(rng, genomes, 96)
+    fq = tmp_path / "reads.fq"
+    with open(fq, "w") as f:
+        for i, r in enumerate(reads):
+            f.write(f"@r{i}\n{r.decode()}\n+\n{'I' * len(r)}\n")
+    opt = port_engine.SearchOptions()
+    assert usable(port_engine.SearchEngine([db], opt))
+    for value in ("scan", "0"):
+        monkeypatch.setenv("KMCP_TPU_DEVICE_HASH", value)
+        assert not usable(port_engine.SearchEngine([db], opt))
+    stats: dict = {}
+    run_search(db, [str(fq)], out_file=str(tmp_path / "port.tsv"),
+               device="cpu", verbose=False, stats=stats, opt=opt)
+    run_search_host(db, [str(fq)], out_file=str(tmp_path / "jax.tsv"),
+                    opt=SearchOptions(backend="numpy"), verbose=False)
+    assert stats["route"] == "engine"
+    got = (tmp_path / "port.tsv").read_bytes()
+    assert got == (tmp_path / "jax.tsv").read_bytes()
+    assert got.count(b"\n") > 40

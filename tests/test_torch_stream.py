@@ -224,3 +224,71 @@ def test_unsupported_searches_raise(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         run_search(db, q, device="cuda", verbose=False)
+
+
+def _write_fastq(path, reads):
+    with open(path, "w") as f:
+        for rid, seq in reads:
+            f.write(f"@{rid}\n{seq.decode()}\n+\n{'I' * len(seq)}\n")
+    return str(path)
+
+
+def _progress_part(err: str) -> list[str]:
+    """stderr after the main-parameters block, numbers masked."""
+    import re
+
+    lines = err.split("\n")
+    i = lines.index("[search] main parameters:") + 1
+    while lines[i].startswith("  "):
+        i += 1
+    return [re.sub(r"\d+(\.\d+)?", "#", line) for line in lines[i:]]
+
+
+@pytest.mark.parametrize("case", ["single", "paired", "engine"])
+def test_verbose_stderr_matches_kmcp_tpu(tmp_path, capsys, case):
+    """With ``verbose`` the port's stderr after the main-parameters block
+    is kmcp_tpu's line for line, numbers masked: a line for each drained
+    batch and the "(streaming)" summary on the streamer (single-end reads
+    in two batches, and pairs), the carriage-return line for each object
+    engine batch and the "queries matched" summary (``-g``, a query a
+    file, 2 a batch).  The TSVs are the same bytes."""
+    rng = np.random.default_rng(29)
+    genomes = random_genomes(rng, 3, 20000)
+    db = build_db(tmp_path, genomes)
+    kw: dict = {}
+    if case == "single":  # 17,000 reads: two 16,384-read batches
+        reads = [(r[0], r[1]) for r in mixed_reads(rng, genomes, 17000)]
+        kw["files"] = [_write_fastq(tmp_path / "r.fq", reads)]
+    elif case == "paired":  # 300 fragments of 350 bp, mates of 150 bp
+        at = [(genomes[i % 3], int(rng.integers(0, 19650)))
+              for i in range(300)]
+        for mate, off in (("read1", 0), ("read2", 200)):
+            kw[mate] = _write_fastq(tmp_path / f"{mate}.fq", [
+                (f"p{i}", g[p + off : p + off + 150])
+                for i, (g, p) in enumerate(at)])
+    else:  # five files of two 3 kb records of one genome each
+        kw.update(whole_file=True, batch_queries=2, files=[
+            _write_fastq(tmp_path / f"g{i}.fq", [
+                (f"q{i}.{j}", genomes[i % 3][p : p + 3000])
+                for j, p in enumerate(rng.integers(0, 17000, 2).tolist())])
+            for i in range(5)])
+    stats: dict = {}
+    run_search(db, out_file=str(tmp_path / "port.tsv"), device="cpu",
+               stats=stats, **kw)
+    port_err = capsys.readouterr().err
+    run_search_host(db, out_file=str(tmp_path / "jax.tsv"),
+                    opt=SearchOptions(backend="host"), **kw)
+    jax_err = capsys.readouterr().err
+    assert stats["route"] == ("engine" if case == "engine" else "stream")
+    assert ((tmp_path / "port.tsv").read_bytes()
+            == (tmp_path / "jax.tsv").read_bytes())
+    got, want = _progress_part(port_err), _progress_part(jax_err)
+    assert got == want
+    if case == "engine":
+        n = [err.count("\rprocessed queries: ") for err in (port_err, jax_err)]
+        assert n == [3, 3] and "(#/#) queries matched" in want[-2]
+        assert "100.0000% (5/5)" in port_err
+    else:
+        n = [err.count(" queries done at ") for err in (port_err, jax_err)]
+        assert n == ([2, 2] if case == "single" else [1, 1])
+        assert "(streaming)" in want[-2]
