@@ -19,9 +19,12 @@ raises, exit non-zero):
   3. kernels: K1' hash_loc (also with the screen plane, and at the paired
      shape with the screen and value planes) and K2' count_mask on the card
      at the main paths' shapes (wide, narrow, and screened pass 1 over a
-     2^25-row union table), and the screened pass-2 kernels K5' pair_count
-     and K6' group_count at 32 and 128 blocks of 4,096 targets (random bits,
-     3,578 rows per block, 20,480 and 36,864 pairs of a 16,384-read batch),
+     2^25-row union table, single-end; and the paired dense tail's read
+     chunk of 300-window joined rows over the wide rows, on bits whose
+     counts pass 255, and paired pass 1: the 9-plane counter), and the
+     screened pass-2 kernels K5' pair_count and K6' group_count at 32 and
+     128 blocks of 4,096 targets (random bits, 3,578 rows per block, 20,480
+     and 36,864 pairs of a 16,384-read batch, 140 and 300 windows a read),
      each exactly equal to its plain PyTorch version (K6' also to K5''s
      counts and mask); CUDA event times, median of 5 after a warm-up, of the
      kernels (their block sort included), the plain versions and each
@@ -321,9 +324,9 @@ def random_bits(rng, rows: int, words: int, ands: int, ors: int):
 def phase_kernels(torch, dev) -> dict:
     """Phase 3: each kernel against its plain version, at the shapes the
     main path gives it (a 16,384-read batch of 150 bp reads in lmax=160
-    rows; K2' gets the read chunk the count tail launches it on, and pass
-    1's batch over the union table).  The bounds count only the Bloom rows
-    this run's locations touch."""
+    rows, and of pairs in lmax=320 rows; K2' gets the read chunk the count
+    tail launches it on, and pass 1's batch over the union table).  The
+    bounds count only the Bloom rows this run's locations touch."""
     from kmcp_tpu_torch.search.device_step import COUNTS_BYTES, FLOOR_NEVER
     from kmcp_tpu_torch.search.hash_loc import hash_loc, hash_loc_plain
 
@@ -385,6 +388,7 @@ def phase_kernels(torch, dev) -> dict:
         raise AssertionError(f"hash_loc paired: max abs err {err}")
     res["hash_loc"].append(time_hash_loc(
         torch, f"paired S={S} N={N} h=1 values", args, got_p))
+    loc_p, nk_p, loc_up = got_p[:3]
     del pairs, got_p, want_p
 
     # screened pass 1: K2' over the packed union table of 32 blocks (one
@@ -394,6 +398,27 @@ def phase_kernels(torch, dev) -> dict:
     res["count_mask"].append(check_count_mask(
         torch, f"pass1 S={N} h=1 W=1", union, got[2].unsqueeze(2).contiguous(),
         zeros, zeros[:32]))
+
+    # paired rows (K = 300 windows, the 9-plane counter): the dense tail's
+    # read chunk over wide-131k's rows, on bits dense enough (7/8) that
+    # counts pass 255, with floors on both sides of it; and pass 1 over
+    # the union table on the paired screen plane
+    W = 4096
+    T = 32 * W
+    Bc = COUNTS_BYTES // (4 * T)
+    bits = torch.from_numpy(
+        random_bits(rng, S, W, 0, 2).view(np.int32)).to(dev)
+    thr_np = rng.integers(180, 280, T).astype(np.int32)
+    thr_np[-7:] = FLOOR_NEVER
+    cthr = (200 + nk_p[:Bc] % 64).to(torch.int32)
+    cthr[::97] = FLOOR_NEVER
+    res["count_mask"].append(check_count_mask(
+        torch, f"paired S={S} h=1 W={W}", bits, loc_p[:Bc].contiguous(), cthr,
+        torch.from_numpy(thr_np).to(dev)))
+    del bits
+    res["count_mask"].append(check_count_mask(
+        torch, f"pass1 paired S={N} h=1 W=1", union,
+        loc_up.unsqueeze(2).contiguous(), zeros, zeros[:32]))
     return res
 
 
@@ -444,9 +469,11 @@ def check_count_mask(torch, label, bits, loc, cthr, thr) -> tuple:
 def phase_pass2(torch, dev) -> dict:
     """Phase 3, screened pass 2: K5' pair_count and K6' group_count against
     their plain versions at 32 and 128 blocks of 4,096 targets (s_block =
-    3,578 rows of random bits, 140 windows per read, 5% of them invalid),
+    3,578 rows of random bits, 140 windows per read and 300 per joined
+    pair, 5% of them invalid),
     on 20,480 and 36,864 read-major pairs of a 16,384-read batch (bits of
-    density 1/4, so a pair's counts sit near 33); K6' (the same pairs, the
+    density 1/4, so a pair's counts sit near 33 at 140 windows and 71
+    at 300); K6' (the same pairs, the
     same floors) must also equal K5''s counts and mask.  Each kernel is
     also held exact and timed on the pairs padded to the screened tail's
     pair budget (``check_padded``), and each pass-2 route timed whole
@@ -460,10 +487,12 @@ def phase_pass2(torch, dev) -> dict:
 
     rng = np.random.default_rng(2025)
     B, s_block, W = 16_384, 3_578, 128
-    Kw = 160 - K + 1  # windows of a read in the batch's lmax = 160 rows
     S_pad = s_pad_for(s_block)
     res = {"pair_count": [], "group_count": []}
-    for nb, P in PASS2_CASES:
+    # windows of a read in the batch's rows: lmax = 160 (single-end) and
+    # 320 (joined pairs)
+    for Kw, nb, P in [(lmax - K + 1, nb, P) for lmax in (160, 320)
+                      for nb, P in PASS2_CASES]:
         as_dev = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
         bits = as_dev(random_bits(rng, nb * s_block, W, 1, 0).view(np.int32))
         loc_np = rng.integers(0, s_block, (B, Kw)).astype(np.int32)
@@ -473,15 +502,16 @@ def phase_pass2(torch, dev) -> dict:
         pb = as_dev((flat // nb).astype(np.int32))
         pg = as_dev((flat % nb).astype(np.int32))
         # floors as the main path sets them (a 150 bp read needs ~72 of
-        # its windows); one read in 500 gets a low floor, so that about
-        # half its pairs' targets pass and the mask is not empty
-        cthr_np = np.full(B, 72, dtype=np.int32)
-        cthr_np[rng.random(B) < 0.002] = 33
+        # its 140 windows, a pair about half of its 300); one read in 500
+        # gets a low floor, so that about half its pairs' targets pass and
+        # the mask is not empty
+        cthr_np = np.full(B, Kw // 2 + 2, dtype=np.int32)
+        cthr_np[rng.random(B) < 0.002] = Kw * 33 // 140
         cthr = as_dev(cthr_np)
         thr_np = rng.integers(1, 10, (nb, 32 * W)).astype(np.int32)
         thr_np[:, -7:] = FLOOR_NEVER  # padding lanes
         thr = as_dev(thr_np)
-        label = f"nb={nb} P={P}"
+        label = f"nb={nb} P={P} K={Kw}"
         chunk = screen.pass2_chunk(32 * W)
 
         args = (bits, loc, pb, pg, cthr, thr)

@@ -20,7 +20,7 @@
 // dependent 4-byte load in flight, ran at about 5% of that bound.  Two
 // variants, chosen in kmcp_count_mask:
 //
-// - slice (W >= 8 and the tile's rows fit in shared memory: up to 4,054
+// - slice (W >= 8 and the tile's rows fit in shared memory: up to 4,053
 //   rows and the sentinel at h = 1 on an H100's 227 KB): a CTA owns one
 //   tile of 8 words (256 targets) and copies that tile of every row, the
 //   sentinel included, into shared memory once;
@@ -31,9 +31,10 @@
 //   loads in flight while the current one counts, one barrier a chunk),
 //   four windows to a 16-byte load.  Windows go eight at a time, loads
 //   first, into a carry-save counter (bitslice.cuh CsaCounter), about two
-//   logic ops a word.  With K < 256 the epilogue transposes the bit planes
-//   into byte counts (bitslice_bytes8), thresholds four targets per
-//   instruction, and stores through a per-warp stage in shared memory so
+//   logic ops a word.  With K < 512 the epilogue transposes the low 8 bit
+//   planes into byte counts (bitslice_bytes8), thresholds four targets per
+//   instruction (a ninth plane, K >= 256, is compared as one word of bit 8
+//   beside them), and stores through a per-warp stage in shared memory so
 //   that each warp store instruction writes 512 contiguous bytes of counts
 //   (scattered 16-byte stores ran at a quarter of the card's write rate).
 // - gather (narrow rows, or rows too many for shared memory): one thread
@@ -42,7 +43,12 @@
 //   their adds into the same carry-save counter, and the 32 counts leave
 //   as eight 16-byte stores.
 //
-// Counts need at most NL = 8, 16 or 32 planes (K < 256, < 65,536, else).
+// Counts need at most NL = 8, 9, 16 or 32 planes (K < 256, < 512, < 65,536,
+// else).  Single-end rows (K = 140) take 8, paired rows of 2 x 150 bp (K =
+// 300) and 2 x 250 bp (K = 492) take 9, which holds one more register than
+// 8 and does not spill at 1,024 threads; 16 and 32 (K >= 512, off the main
+// paths) keep the generic per-thread epilogue and spill in the slice
+// variant.
 // The caller bounds device memory by launching on read chunks whose counts
 // stay near 1 GB (counts for a 16k-read batch at 131k targets would be
 // 8.6 GB).
@@ -194,6 +200,8 @@ extern "C" int kmcp_count_mask(const void* bits, int W, int S_ext,
   cudaError_t err;
   if (nlev <= 8)
     err = launch<8>(b, W, S_ext, l, B, K, h, ct, t, c, m, s);
+  else if (nlev == 9)
+    err = launch<9>(b, W, S_ext, l, B, K, h, ct, t, c, m, s);
   else if (nlev <= 16)
     err = launch<16>(b, W, S_ext, l, B, K, h, ct, t, c, m, s);
   else

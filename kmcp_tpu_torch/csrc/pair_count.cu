@@ -27,9 +27,10 @@
 // a block's slab leaves device memory once per tile, and counts the z-th
 // share of g's pairs in rounds of 128 pairs x 8 words: locations staged
 // double-buffered, eight windows per carry-save add, the byte-plane
-// epilogue with fused floors, and 512-byte warp stores to each pair's own
-// row p, so read-major order needs no restoring.  Blocks narrower than one
-// tile (W < 8) or too tall for shared memory (over 4,054 rows on an H100's
+// epilogue with fused floors (8 planes single-end, 9 for paired rows up to
+// K = 511), and 512-byte warp stores to each pair's own row p, so
+// read-major order needs no restoring.  Blocks narrower than one
+// tile (W < 8) or too tall for shared memory (over 4,053 rows on an H100's
 // 227 KB: slice.cuh slice_smem) take the gather variant: a
 // thread per (pair, word) in the given order, eight loads in flight into
 // the same carry-save counter, 16-byte count stores.
@@ -195,6 +196,9 @@ extern "C" int kmcp_pair_count(const void* bits, int W, int n_blocks,
   cudaError_t err;
   if (nlev <= 8)
     err = launch<8>(b, W, n_blocks, s_block, l, K, b_, g_, P, o, sg, ct, t,
+                    c, m, s);
+  else if (nlev == 9)
+    err = launch<9>(b, W, n_blocks, s_block, l, K, b_, g_, P, o, sg, ct, t,
                     c, m, s);
   else if (nlev <= 16)
     err = launch<16>(b, W, n_blocks, s_block, l, K, b_, g_, P, o, sg, ct, t,

@@ -9,9 +9,17 @@
 // chunk's global loads issued before the current chunk's counting, one
 // barrier a chunk.  Windows go eight at a time, loads first, into a
 // carry-save counter (bitslice.cuh CsaCounter).  With counts below 256
-// (NL = 8) the epilogue transposes the planes to byte counts, compares four
-// targets at once, and writes the counts through a per-warp stage in
-// shared memory so that a warp stores 512 contiguous bytes per instruction.
+// (NL = 8, single-end rows) the epilogue transposes the planes to byte
+// counts, compares four targets at once, and writes the counts through a
+// per-warp stage in shared memory so that a warp stores 512 contiguous
+// bytes per instruction.  Counts below 512 (NL = 9, paired rows of up to
+// 2 x 250 bp) keep that epilogue and add the ninth plane as one word of
+// "256" bits: the mask compares it on whole 32-target words beside the
+// byte compares (bitslice_mask9), and each count leaves the stage as its
+// byte with bit 8 from that word, which a warp shuffle brings to the lane
+// that stores it.  NL = 16 and 32 (K >= 512, off the main paths) take the
+// generic per-thread epilogue (bitslice_store16) and spill at 1,024
+// threads.
 //
 // Which reads a CTA counts, which row of loc holds their windows and which
 // row of the outputs they land on is the caller's Rows policy: src(i) is
@@ -40,9 +48,11 @@ __host__ __device__ constexpr int sloc_pitch(int h) {
   return kc_for(h) * h + 4;
 }
 
+// The tile of every row, the floors (byte floors, "never" and bit-8
+// words), the location buffers and the stage.
 inline size_t slice_smem(int S_ext, int h) {
-  return ((size_t)S_ext * WT + WT * 8 + WT + 2 * SLICE_READS * sloc_pitch(h) +
-          STAGE_WORDS) * 4;
+  return ((size_t)S_ext * WT + WT * 8 + 2 * WT +
+          2 * SLICE_READS * sloc_pitch(h) + STAGE_WORDS) * 4;
 }
 
 // 16 bytes global -> shared, asynchronously (Ampere+ cp.async, L2 only).
@@ -97,14 +107,21 @@ __device__ __forceinline__ void slice_count(
     const int32_t* __restrict__ thr, int32_t* __restrict__ counts,
     uint32_t* __restrict__ mask, int b_lo, int b_hi, Rows rows,
     uint32_t* smem) {
-  constexpr int KC = kc_for(H);
+  // With 9 planes and H > 1 a chunk is 8 windows (the prefetch holds H
+  // registers, not 4 H) and the hashes' rows are ANDed one hash at a time,
+  // so that the counter's extra plane does not spill (ptxas: 57-62
+  // registers at H = 2..4; 16-window chunks still spilled at H = 3 and 4);
+  // the buffers keep their size
+  constexpr bool LEAN = NL == 9 && H > 1;
+  constexpr int KC = LEAN ? 8 : kc_for(H);
   constexpr int PITCH = sloc_pitch(H);
   constexpr int PRE = SLICE_READS * KC * H / SLICE_THREADS;  // loads a chunk
   const int S_ext = n_rows + 1;
   uint32_t* slice = smem;                           // [S_ext][WT]
   uint32_t* sthr8 = slice + (size_t)S_ext * WT;     // [WT][8] byte floors
-  uint32_t* snever = sthr8 + WT * 8;                // [WT] floors > 255
-  int32_t* sloc = reinterpret_cast<int32_t*>(snever + WT);  // [2][reads][PITCH]
+  uint32_t* snever = sthr8 + WT * 8;                // [WT] floors > cap
+  uint32_t* shi = snever + WT;                      // [WT] floors' bit 8
+  int32_t* sloc = reinterpret_cast<int32_t*>(shi + WT);  // [2][reads][PITCH]
   uint32_t* stage = reinterpret_cast<uint32_t*>(sloc + 2 * SLICE_READS * PITCH);
 
   const int tid = threadIdx.x;
@@ -132,18 +149,25 @@ __device__ __forceinline__ void slice_count(
   }
   if (tid < WT * 8) {  // word w, targets 4k..4k+3 of it
     const int w = tid / 8, k = tid % 8;
-    uint32_t t4 = 0, nev = 0;
+    uint32_t t4 = 0, nev = 0, hi = 0;
     for (int e = 0; e < 4; ++e) {
       const int t = w < nw ? __ldg(thr + (size_t)(w0 + w) * 32 + 4 * k + e)
                            : 0;
-      t4 |= (uint32_t)min(max(t, 0), 255) << (8 * e);
-      nev |= (uint32_t)(t > 255) << (4 * k + e);
+      const FloorSplit f = floor_split(t, NL == 9 ? 511 : 255);
+      t4 |= f.lo << (8 * e);
+      nev |= f.never << (4 * k + e);
+      hi |= f.hi << (4 * k + e);
     }
     sthr8[tid] = t4;
-    nev |= __shfl_xor_sync(0xffffffffu, nev, 1);
-    nev |= __shfl_xor_sync(0xffffffffu, nev, 2);
-    nev |= __shfl_xor_sync(0xffffffffu, nev, 4);
-    if (k == 0) snever[w] = nev;
+#pragma unroll
+    for (int o = 1; o < 8; o <<= 1) {
+      nev |= __shfl_xor_sync(0xffffffffu, nev, o);
+      hi |= __shfl_xor_sync(0xffffffffu, hi, o);
+    }
+    if (k == 0) {
+      snever[w] = nev;
+      shi[w] = hi;
+    }
   }
 
   const int rr = tid / WT, w = tid % WT;
@@ -201,7 +225,7 @@ __device__ __forceinline__ void slice_count(
       int i = 0;
       for (; i + 8 <= kc; i += 8) {
         uint32_t d[8];
-#pragma unroll
+#pragma unroll (LEAN ? 1 : H)
         for (int jj = 0; jj < H; ++jj) {
           const int4 a = *reinterpret_cast<const int4*>(lr + jj * KC + i);
           const int4 b = *reinterpret_cast<const int4*>(lr + jj * KC + i + 4);
@@ -255,6 +279,38 @@ __device__ __forceinline__ void slice_count(
                 (int)__byte_perm(x, 0, 0x4442), (int)__byte_perm(x, 0, 0x4443));
             reinterpret_cast<int4*>(
                 counts + ((size_t)rows.dst(b0 + r) * W + w0) * 32)[q] = v;
+          }
+        }
+        __syncwarp();
+      } else if constexpr (NL == 9) {
+        // as NL = 8, with plane 8 (bit 8 of each count) beside the bytes
+        uint32_t out[8];
+        bitslice_bytes8(acc.c, out);
+        const uint32_t c8 = acc.c[8];
+        if (rr < nr && w < nw)
+          mask[(size_t)rows.dst(b) * W + w0 + w] =
+              bitslice_mask9(out, c8, sthr8 + w * 8, shi[w], snever[w],
+                             __ldg(cthr + rows.src(b)));
+        uint32_t* st = stage + warp * 256;
+        uint4* dst = reinterpret_cast<uint4*>(st + (lane / WT) * 64 + w * 8);
+        dst[0] = make_uint4(out[0], out[1], out[2], out[3]);
+        dst[1] = make_uint4(out[4], out[5], out[6], out[7]);
+        __syncwarp();
+#pragma unroll
+        for (int step = 0; step < 8; ++step) {
+          const int p = step * 32 + lane;
+          const int rl = p >> 6, q = p & 63;
+          const int r = warp * (32 / WT) + rl;
+          // bit 8 of targets 4q..4q+3: plane 8 of the lane that counted
+          // read rl's word q / 8
+          const uint32_t h8 =
+              __shfl_sync(0xffffffffu, c8, rl * WT + (q >> 3));
+          if (r < nr && q < nw * 8) {
+            int v[4];
+            bitslice_expand4(st[p], h8 >> (4 * (q & 7)), v);
+            reinterpret_cast<int4*>(
+                counts + ((size_t)rows.dst(b0 + r) * W + w0) * 32)[q] =
+                make_int4(v[0], v[1], v[2], v[3]);
           }
         }
         __syncwarp();

@@ -14,6 +14,7 @@ there is no fallback.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import hashlib
@@ -122,6 +123,35 @@ def build() -> str:
     return so
 
 
+def load(so: str) -> ctypes.CDLL:
+    """The kernel library at ``so``, its entry points typed."""
+    lib = ctypes.CDLL(so)
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    i64, u64 = ctypes.c_longlong, ctypes.c_ulonglong
+    lib.kmcp_hash_loc.argtypes = [
+        vp, i32, i32, i32, i64, u64, i32, u64, u64, u64, u64,
+        i64, vp, vp, vp, vp, vp,
+    ]
+    lib.kmcp_hash_loc.restype = i32
+    lib.kmcp_count_mask.argtypes = [
+        vp, i32, i32, vp, i32, i32, i32, vp, vp, vp, vp, vp,
+    ]
+    lib.kmcp_count_mask.restype = i32
+    lib.kmcp_pair_count.argtypes = [
+        vp, i32, i32, i32, vp, i32, vp, vp, i32, vp, vp, vp, vp, vp,
+        vp, vp,
+    ]
+    lib.kmcp_pair_count.restype = i32
+    lib.kmcp_pair_count_variant.argtypes = [i32, i32]
+    lib.kmcp_pair_count_variant.restype = i32
+    lib.kmcp_group_count.argtypes = [
+        vp, i32, i32, i32, i32, i32, vp, i32, vp, vp, vp, i32, vp, vp,
+        vp, vp, vp,
+    ]
+    lib.kmcp_group_count.restype = i32
+    return lib
+
+
 def get_lib() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
     global _lib
@@ -129,29 +159,28 @@ def get_lib() -> ctypes.CDLL:
         return _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(build())
-            vp, i32 = ctypes.c_void_p, ctypes.c_int
-            i64, u64 = ctypes.c_longlong, ctypes.c_ulonglong
-            lib.kmcp_hash_loc.argtypes = [
-                vp, i32, i32, i32, i64, u64, i32, u64, u64, u64, u64,
-                i64, vp, vp, vp, vp, vp,
-            ]
-            lib.kmcp_hash_loc.restype = i32
-            lib.kmcp_count_mask.argtypes = [
-                vp, i32, i32, vp, i32, i32, i32, vp, vp, vp, vp, vp,
-            ]
-            lib.kmcp_count_mask.restype = i32
-            lib.kmcp_pair_count.argtypes = [
-                vp, i32, i32, i32, vp, i32, vp, vp, i32, vp, vp, vp, vp, vp,
-                vp, vp,
-            ]
-            lib.kmcp_pair_count.restype = i32
-            lib.kmcp_pair_count_variant.argtypes = [i32, i32]
-            lib.kmcp_pair_count_variant.restype = i32
-            lib.kmcp_group_count.argtypes = [
-                vp, i32, i32, i32, i32, i32, vp, i32, vp, vp, vp, i32, vp, vp,
-                vp, vp, vp,
-            ]
-            lib.kmcp_group_count.restype = i32
-            _lib = lib
+            _lib = load(build())
     return _lib
+
+
+def build_checkout(csrc_dir: str, so: str) -> ctypes.CDLL:
+    """Build the ``*.cu`` of another checkout's ``csrc/`` (with the same
+    entry points) into ``so`` and load it, for A/B timing tools."""
+    srcs = sorted(glob.glob(os.path.join(csrc_dir, "*.cu")))
+    if not srcs:
+        raise SystemExit(f"no *.cu under {csrc_dir}")
+    os.makedirs(os.path.dirname(so), exist_ok=True)
+    compile_library(srcs, so)
+    return load(so)
+
+
+@contextlib.contextmanager
+def using(lib: ctypes.CDLL):
+    """Within the block the kernel wrappers launch from ``lib``."""
+    global _lib
+    saved = get_lib()
+    _lib = lib
+    try:
+        yield lib
+    finally:
+        _lib = saved

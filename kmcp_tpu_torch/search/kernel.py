@@ -25,8 +25,10 @@ from .count import check_rows, count_mask
 from .device_step import COUNTS_BYTES, FLOOR_NEVER
 
 # Windows per K2' row: a multiple of 32 under 256, so that K2' runs its
-# 8-plane counter (the 16-plane one spills); longer rows fold into
-# pseudo-rows of this many windows.
+# 8-plane counter; longer rows fold into pseudo-rows of this many windows.
+# The 9-plane counter (rows of up to 511 windows) does not spill either;
+# whether pseudo-rows of up to 480 windows pay on this route is not
+# measured (ROADMAP B).
 ROW_WINDOWS = 224
 
 

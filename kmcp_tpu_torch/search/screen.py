@@ -72,10 +72,16 @@ def pass2_kernel(n_blocks: int, w_block: int, s_block: int,
     128 blocks and 36,864 pairs, and the K6' route (block sort + kernel
     with fused floors + compaction) 2.030 ms and 3.445 ms (chip_smoke.py
     phase 3; tools/pass2_ab.py in the same call: 1.03-1.29 against
-    1.66-1.68 ms, and 1.40-1.45 against 2.71-2.82 ms; PERF.md).  So K5' at
-    every measured geometry; K6' runs only when asked for, and then only
-    while every real row multiplicity fits the plain version's bf16 U
-    exactly (dedup_threshold <= 256)."""
+    1.66-1.68 ms, and 1.40-1.45 against 2.71-2.82 ms; PERF.md).  At 300
+    windows a read (the joined rows of read pairs), with K5' on its 9-plane
+    counter, the K5' route took 1.489-1.497 ms at 32 blocks and
+    2.301-2.328 ms at 128, while K6' sweeps each pair's windows twice (its
+    u8 multiplicities hold 255) and its route took 4.824-4.890 ms and
+    8.325-8.334 ms (tools/pass2_ab.py, the same card).  So K5' at every
+    measured geometry and row length, and the rule does not depend on K;
+    K6' runs only when asked for, and then only while every real row
+    multiplicity fits the plain version's bf16 U exactly (dedup_threshold
+    <= 256)."""
     return "pair"
 
 

@@ -78,13 +78,44 @@ def check_against_pallas_ring(K, W, h):
     assert 0 < n_set < mask.numel() * 32  # both outcomes occur
 
 
-@pytest.mark.parametrize("h", [1, 3])
-def test_count_mask_narrow_rows_match_unpack_count(h):
-    """W = 5 (the demo DB's row width) against the XLA tail's gather +
-    _unpack_count, the JAX path for rows that narrow."""
-    rng = np.random.default_rng(5 + h)
-    S, W, B, K = 997, 5, 64, 130
+def _dense_case(rng, S, W, B, K, h):
+    """_case with counts past 255: rows the OR of three uniform words (7/8
+    of the bits set), row 0 all ones, every fourth read with a share of its
+    windows (up to all of them) on row 0, and floors between 256 and 511
+    beside low ones and FLOOR_NEVER."""
     bits, loc, tmin, sizes_pos, cthr = _case(rng, S, W, B, K, h)
+    for _ in range(2):
+        bits |= rng.integers(0, 2**32, size=bits.shape, dtype=np.uint32)
+    bits[0] = 0xFFFFFFFF
+    bits[-1] = 0
+    share = rng.uniform(0.5, 1.0, B)
+    share[::8] = 1.0
+    on0 = (rng.random((B, K)) < share[:, None]) & (np.arange(B) % 4 == 0)[
+        :, None]
+    loc[on0] = 0
+    T = 32 * W
+    tmin = np.where(rng.random(T) < 0.6, rng.integers(256, 512, T),
+                    rng.integers(0, K + 2, T)).astype(np.int32)
+    cthr = np.where(rng.random(B) < 0.6, rng.integers(256, 512, B),
+                    rng.integers(0, K // 2, B)).astype(np.int32)
+    cthr[1::5] = FLOOR_NEVER
+    return bits, loc, tmin, sizes_pos, cthr
+
+
+# K = 130: single-end rows; 256 and 300: counts past 255 (paired rows)
+@pytest.mark.parametrize("h,K", [
+    pytest.param(1, 130, id="1"), pytest.param(3, 130, id="3"),
+    pytest.param(1, 256, id="1-K256"), pytest.param(3, 256, id="3-K256"),
+    pytest.param(1, 300, id="1-K300"), pytest.param(3, 300, id="3-K300"),
+])
+def test_count_mask_narrow_rows_match_unpack_count(h, K):
+    """W = 5 (the demo DB's row width) against the XLA tail's gather +
+    _unpack_count, the JAX path for rows that narrow; at K = 256 and 300
+    on rows dense enough that counts pass 255."""
+    rng = np.random.default_rng(5 + h if K == 130 else K + h)
+    S, W, B = 997, 5, 64
+    make = _case if K == 130 else _dense_case
+    bits, loc, tmin, sizes_pos, cthr = make(rng, S, W, B, K, h)
     jb = jnp.asarray(bits)
     rows = None
     for j in range(h):
@@ -99,6 +130,11 @@ def test_count_mask_narrow_rows_match_unpack_count(h):
     np.testing.assert_array_equal(
         mask.numpy(), want_mask.astype(np.uint32).view(np.int32)
     )
+    if K > 255:
+        assert (want > 255).any() and (want == K).any()
+        n_set = int(np.unpackbits(mask.numpy().view(np.uint8)).sum())
+        assert 0 < n_set < mask.numel() * 32
+        assert (want[ok.reshape(B, 32 * W) > 0] > 255).any()
 
 
 def test_count_mask_bit31_words():

@@ -103,27 +103,63 @@ def test_count_mask_kernel_matches_plain(cuda, W, K, h, B):
     assert torch.equal(counts, counts_p) and torch.equal(mask, mask_p)
 
 
+def _near_255(rng, words, K, h):
+    """For 255 <= K <= 512 (the 9-plane counter and its edges): ORs
+    uniform words into ``words`` until a read's count of a target, the AND
+    of h rows over K windows, sits past 255 (or at K = 256, mostly at 256)."""
+    if not 255 <= K <= 512:
+        return
+    for _ in range(12):
+        sample = np.unpackbits(words.ravel()[:1 << 16].view(np.uint8))
+        if float(sample.mean()) ** h * K >= 262:
+            break
+        words |= rng.integers(0, 2**32, words.shape, dtype=np.uint32)
+
+
+def _floors_past_255(rng, thr, cthr, K):
+    """Half the floors between 256 and 511 and some reads FLOOR_NEVER, for
+    the cases _near_255 makes dense."""
+    if not 255 <= K <= 512:
+        return
+    for f in (thr, cthr):
+        f[:] = np.where(rng.random(f.shape) < 0.5,
+                        rng.integers(256, 512, f.shape), f)
+    cthr[2::7] = FLOOR_NEVER
+
+
 @pytest.mark.parametrize("W,S,K,h,B,variant", [
     (13, 997, 37, 1, 300, 1),     # W not a multiple of the 8-word tile
     (8, 997, 140, 2, 129, 1),     # one tile, a partial 128-read round
     (4096, 3578, 140, 1, 40, 1),  # the wide main path's rows
-    (64, 500, 300, 3, 130, 1),    # K > 255: 16 planes
+    (64, 500, 300, 3, 130, 1),    # K = 300, h = 3: 9 planes
     (16, 50, 66000, 1, 2, 1),     # K > 65,535: 32 planes
     (24, 1000, 45, 4, 1, 1),      # h = 4, B = 1
     (40, 20000, 140, 2, 70, 0),   # wide rows too many for shared memory
     (1, 33_554, 140, 1, 1000, 0),  # pass 1's W = 1
     (5, 99_991, 141, 3, 257, 0),  # narrow rows, K not a multiple of 8
     (5, 997, 140, 1, 1, 0),       # B = 1
+    (256, 997, 255, 1, 200, 1),   # K = 255: the last of 8 planes
+    (64, 997, 256, 1, 300, 1),    # K = 256: the first of 9 planes
+    (4096, 3578, 300, 1, 300, 1),  # the paired dense tail's rows
+    (16, 997, 300, 2, 129, 1),    # K = 300, h = 2, a partial round
+    (40, 3000, 511, 1, 200, 1),   # K = 511: the last of 9 planes
+    (24, 997, 511, 4, 64, 1),     # K = 511, h = 4
+    (64, 500, 512, 1, 70, 1),     # K = 512: 16 planes
+    (1, 33_554, 300, 1, 1000, 0),  # paired pass 1's W = 1
+    (5, 99_991, 300, 3, 257, 0),  # narrow rows, K = 300
 ])
 def test_count_mask_variants_match_plain(cuda, W, S, K, h, B, variant):
     """Both K2' variants (1: shared-memory slice, 0: gather) against the
     plain version, on words with bit 31 set, one read whose every window
-    is on the sentinel row and one whose windows hit an all-ones row."""
+    is on the sentinel row and one whose windows hit an all-ones row; for
+    K from 255 to 512 on rows dense enough that most counts pass 255, with
+    floors past 255."""
     from kmcp_tpu_torch.kernels._build import get_lib
 
     assert get_lib().kmcp_count_mask_variant(W, S + 1, h) == variant
     rng = np.random.default_rng(W * 31 + K + h)
     bits = rng.integers(0, 2**32, (S + 1, W), dtype=np.uint32)
+    _near_255(rng, bits, K, h)
     bits |= np.uint32(1 << 31)
     bits[0] = 0xFFFFFFFF
     bits[-1] = 0
@@ -134,6 +170,7 @@ def test_count_mask_variants_match_plain(cuda, W, S, K, h, B, variant):
     thr = rng.integers(0, K + 2, 32 * W).astype(np.int32)
     thr[-3:] = FLOOR_NEVER
     cthr = rng.integers(0, K + 2, B).astype(np.int32)
+    _floors_past_255(rng, thr, cthr, K)
     args = [torch.from_numpy(a).to(cuda) for a in
             (bits.view(np.int32), loc, cthr, thr)]
     counts, mask = count_mask(*args)
@@ -143,6 +180,8 @@ def test_count_mask_variants_match_plain(cuda, W, S, K, h, B, variant):
     assert not counts[0].any()
     if B > 1:
         assert (counts[1] == K).all() and (mask != 0).any()
+    if 256 <= K <= 512:
+        assert float((counts[2:] > 255).float().mean()) > 0.5
 
 
 def test_count_tail_cuda_matches_cpu(cuda):
@@ -216,8 +255,10 @@ def test_pair_count_kernel_matches_plain(cuda, nb, s_block, W, B, K, P):
 
 @pytest.mark.parametrize("nb,s_block,W,B,K,P,empty", [
     (4, 3578, 128, 600, 140, 3000, 2),  # the main path's blocks, > 1 CTA each
-    (3, 500, 8, 300, 300, 700, None),   # one tile, K = 300: 16 planes
+    (3, 500, 8, 300, 300, 700, None),   # one tile, K = 300: 9 planes
     (6, 997, 13, 200, 141, 50, 0),      # W not a multiple of 8, few pairs
+    (4, 3578, 128, 600, 300, 3000, 1),  # the paired screened tail's blocks
+    (2, 997, 16, 100, 511, 300, None),  # K = 511: the last of 9 planes
 ])
 def test_pair_count_slice_matches_plain(cuda, nb, s_block, W, B, K, P, empty):
     """K5''s block-stationary slice variant on unsorted pairs, a block with
@@ -227,8 +268,10 @@ def test_pair_count_slice_matches_plain(cuda, nb, s_block, W, B, K, P, empty):
     from kmcp_tpu_torch.kernels._build import get_lib
 
     assert get_lib().kmcp_pair_count_variant(W, s_block) == 1
-    rng = np.random.default_rng(nb * 100 + W)
+    rng = np.random.default_rng(nb * 100 + W + (K if K > 255 else 0))
     bits = _blocks(rng, nb, s_block, W).view(np.uint32)
+    _near_255(rng, bits, K, 1)
+    bits[-1] = 0  # the sentinel row
     bits[:-1] |= np.uint32(1 << 31)
     bits[0] = 0xFFFFFFFF
     loc = rng.integers(0, s_block + 1, (B, K)).astype(np.int32)
@@ -240,11 +283,11 @@ def test_pair_count_slice_matches_plain(cuda, nb, s_block, W, B, K, P, empty):
     pg[:2] = 0
     pb = rng.integers(0, B, P).astype(np.int32)
     pb[:2] = (0, 1)
-    arrays = (bits.view(np.int32), loc, pb, pg,
-              rng.integers(0, K // 3 + 2, B).astype(np.int32),
-              np.where(rng.random((nb, 32 * W)) < 0.1, FLOOR_NEVER,
-                       rng.integers(0, K // 3 + 2, (nb, 32 * W))
-                       ).astype(np.int32))
+    cthr = rng.integers(0, K // 3 + 2, B).astype(np.int32)
+    thr = np.where(rng.random((nb, 32 * W)) < 0.1, FLOOR_NEVER,
+                   rng.integers(0, K // 3 + 2, (nb, 32 * W))).astype(np.int32)
+    _floors_past_255(rng, thr, cthr, K)
+    arrays = (bits.view(np.int32), loc, pb, pg, cthr, thr)
     args = [torch.from_numpy(a).to(cuda) for a in arrays]
     n0 = pair_count.launches
     counts, mask = pair_count(*args)
@@ -253,6 +296,8 @@ def test_pair_count_slice_matches_plain(cuda, nb, s_block, W, B, K, P, empty):
     assert pair_count.launches == n0 + 1
     assert torch.equal(counts, counts_p) and torch.equal(mask, mask_p)
     assert not counts[0].any() and (counts[1] == K).all()
+    if K > 255:
+        assert float((counts[2:] > 255).float().mean()) > 0.5
 
 
 def _k6_case(rng, nb, s_block, W, B, K, P, S_pad, cuda):
