@@ -31,7 +31,11 @@ raises, exit non-zero):
      pass-2 route as the tail runs it (kernel + compaction); each kernel's
      bound (``bound``) from this run's inputs; and for K6' the one PyTorch
      call that computes the same grouped product (``torch._grouped_mm`` in
-     bf16), timed as a yardstick and used nowhere in the port;
+     bf16), timed as a yardstick and used nowhere in the port; and K2' and
+     K5' at a real KMCP DB's row count (2^20 rows, GTDB r202's mean chunk
+     at ``index -f 0.3``, and 16,000: kmcp_tpu_torch/tools/tall_ab.py's
+     shapes, bits made on the card), each with the variant it ran, its
+     bound over the rows its locations touch and the ratio;
   4. main path: a 131,072-target single-block wide DB (2,048 synthetic
      genomes x 64 chunks, k=21, one hash, FPR 0.3; the recipe of
      tools/bench_large_t.py) and 65,536 150 bp reads (40 source genomes,
@@ -133,8 +137,8 @@ raises, exit non-zero):
  12. batches in flight (the streamer's flush/drain pipeline, no DB built):
      (a) wide-131k, screened-131k with pass2 "auto" and "gemm",
      paired-131k, paired-screened-131k and sketch-minimizer-16k (phases 4,
-     6, 7 and 8's DBs and reads) through ``run_search`` at ``in_flight`` 1,
-     4, 4 and 1 (in turns), each TSV byte-identical to the other depth's and to its
+     6, 7 and 8's DBs and reads) through ``run_search`` at ``in_flight`` 1
+     and 4, each TSV byte-identical to the other depth's and to its
      phase's plain-version run, every kernel of its path launched; the
      untimed walls, e2e rates and peak device memory
      (``max_memory_allocated``) at both depths, in this call; (b) the
@@ -162,14 +166,25 @@ raises, exit non-zero):
      run: every TSV the phase's card TSV, K1' launched by the device-hash
      runs only, K2' by all; walls and rates beside the card's name and
      power limit and the host's cores and OpenMP threads.
+ 14. tall rows: phase 4's k-mer files indexed again at ``-f 0.01`` (about
+     127k rows a block, built beside phase 6's DB) as one block and as 32
+     screened blocks; 16,384 of phase 4's reads and of phase 7's pairs
+     searched on each, stage-timed, each TSV byte-identical to the
+     plain-kernel run on the card and to ``--backend host``, K2' and K5'
+     on the row ring (launches by variant; the gather only for pass 1's
+     one-word union rows), their launches' summed bounds, and a
+     ``pass2="gemm"`` search at these rows.
 Phase 3 also times K5' and K6' at the screened tail's padded pair budget
 (a 16,384-read batch's slots, padding pairs of block nb), exact against
 their plain versions there.  The stage-timed reruns of phases 4-8
 synchronise around every stage, which serialises the batches in flight;
 their e2e rates come from the untimed runs.
-Every main-path run sets all four kernels' launch counts to 0 just before
-it and reads them just after (phase 11: every job on every rank; phase
-12: every run of (a); phase 13: every run).
+Every main-path run sets all four kernels' launch counts (and K2''s and
+K5''s by variant) to 0 just before it and reads them just after (phase
+11: every job on every rank; phase 12: every run of (a); phases 13 and
+14: every run).  The DBs that phases 6, 8 and 14 build from the same
+inputs are built at once, by one ``python -m kmcp_tpu_torch`` process
+each.
 Then one JSON line of kernel results, the card's name and power limit, and
 the last line ``{"ok": true, "device": {...}}``.
 
@@ -441,10 +456,19 @@ def time_hash_loc(torch, label, args, outs) -> tuple:
     return label, 0, ms, ms_p, bd, call
 
 
-def check_count_mask(torch, label, bits, loc, cthr, thr) -> tuple:
+# The variant each phase-3 case ran, by its label (the kernels line's
+# "variant").
+VARIANT_OF: dict = {}
+
+
+def check_count_mask(torch, label, bits, loc, cthr, thr,
+                     plain_reps: int = 5) -> tuple:
     """K2' against its plain version on these inputs -> (label, max abs
-    err, ms, plain ms, bound); raises unless they are equal."""
-    from kmcp_tpu_torch.search.count import count_mask, count_mask_plain
+    err, ms, plain ms (median of ``plain_reps``), bound); raises unless
+    they are equal."""
+    from kmcp_tpu_torch.search.count import (
+        count_mask, count_mask_plain, count_mask_variant,
+    )
 
     counts, mask = count_mask(bits, loc, cthr, thr)
     counts_p, mask_p = count_mask_plain(bits, loc, cthr, thr)
@@ -456,14 +480,108 @@ def check_count_mask(torch, label, bits, loc, cthr, thr) -> tuple:
     n_set = int(torch.count_nonzero(mask))
     del counts_p, mask_p
     ms = time_ms(torch, lambda: count_mask(bits, loc, cthr, thr))
-    ms_p = time_ms(torch, lambda: count_mask_plain(bits, loc, cthr, thr))
+    ms_p = time_ms(torch, lambda: count_mask_plain(bits, loc, cthr, thr),
+                   plain_reps)
     rows = torch.unique(loc).numel()  # the Bloom rows this run reads
     bd = bound(rows * bits.shape[1] * 4 + nbytes(loc, cthr, thr, counts, mask))
-    B, K = loc.shape[:2]
+    B, K, h = loc.shape
+    VARIANT_OF[label] = count_mask_variant(bits.shape[1], bits.shape[0], h)
     log(f"phase 3 count_mask [{label}] B={B} K={K}: exact (max abs err 0, "
-        f"{n_set} mask words set); kernel {ms:.3f} ms, plain {ms_p:.3f} ms, "
-        f"bound {bd[0]:.4f} ms ({bd[1]}, {rows} rows touched)")
+        f"{n_set} mask words set); kernel {ms:.3f} ms ({VARIANT_OF[label]} "
+        f"variant), plain {ms_p:.3f} ms, bound {bd[0]:.4f} ms ({bd[1]}, "
+        f"{rows} rows touched), kernel / bound {ms / bd[0]:.2f}")
     return label, err, ms, ms_p, bd
+
+
+# K2' and K5' at a real KMCP DB's row count (GTDB r202's mean chunk at
+# ``index -f 0.3 -n 1``: about 2^20 rows; tools/gtdb_rehearsal.py) and in
+# the range of the TPU's resident row groups (16,000 rows); the shapes of
+# kmcp_tpu_torch/tools/tall_ab.py: (id, rows S, words W, hashes h, reads
+# B, windows K, density as random_words takes it)
+TALL_COUNT_CASES = (
+    ("a", 1 << 20, 4096, 1, 2048, 140, -1),
+    ("b", 1 << 20, 4096, 1, 2048, 300, 2),
+    ("c", 1 << 20, 1024, 3, 8192, 140, 1),
+    ("d", 16_000, 4096, 1, 2048, 140, -1),
+)
+TALL_PAIR_CASES = ((16_000, 140), (16_000, 300), (1 << 20, 140),
+                   (1 << 20, 300))  # (s_block, K): 32 blocks, 20,480 pairs
+
+
+def phase_tall_kernels(torch, dev) -> dict:
+    """Phase 3 at tall rows: K2' at cases (a)-(d) and K5' at 32 blocks of
+    4,096 targets, 20,480 pairs of a 16,384-read batch, s_block 16,000 and
+    2^20, each exact against its plain version, its ms, bound (the rows the
+    locations touch), ratio and variant (the plain versions, 0.1-0.7 s a
+    call, timed over 2 calls).  Bits, locations and pairs are
+    made on the card from a seeded generator (17.2 GB of bits at 2^20
+    rows), as tools/tall_ab.py makes them."""
+    from kmcp_tpu_torch.search.device_step import FLOOR_NEVER
+    from kmcp_tpu_torch.search.pair_count import (
+        block_order, pair_count, pair_count_plain, pair_count_variant,
+    )
+    from kmcp_tpu_torch.tools.tall_ab import (
+        PAIR_B, PAIR_BLOCKS, PAIR_P, PAIR_W, floors_near, random_loc,
+        random_words,
+    )
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2027)
+    res = {"count_mask": [], "pair_count": []}
+    for cid, S, W, h, B, Kw, dens in TALL_COUNT_CASES:
+        bits = random_words(gen, S, W, dens)
+        loc = random_loc(gen, (B, Kw, h), S)
+        p = 0.5 ** (abs(dens) + 1)
+        lo = int(0.95 * Kw * (p if dens < 0 else 1 - p) ** h)
+        thr = floors_near(gen, 32 * W, lo, 10)
+        thr[-7:] = FLOOR_NEVER
+        cthr = floors_near(gen, B, lo, 20)
+        cthr[::97] = FLOOR_NEVER
+        res["count_mask"].append(check_count_mask(
+            torch, f"tall ({cid}) S={S} h={h} W={W}", bits, loc, cthr, thr,
+            plain_reps=2))
+        del bits, loc
+        torch.cuda.empty_cache()
+    nb, W, P, B = PAIR_BLOCKS, PAIR_W, PAIR_P, PAIR_B
+    for s_block, Kw in TALL_PAIR_CASES:
+        bits = random_words(gen, nb * s_block, W, -1 if Kw < 256 else 2)
+        loc = random_loc(gen, (B, Kw), s_block)
+        flat = torch.randperm(B * nb, device=dev, generator=gen)[:P].sort()[0]
+        pb, pg = (flat // nb).to(torch.int32), (flat % nb).to(torch.int32)
+        need = Kw // 2 + 2 if Kw < 256 else Kw * 85 // 100
+        cthr = torch.full((B,), need, dtype=torch.int32, device=dev)
+        cthr[::500] = need // 4
+        thr = torch.randint(1, 10, (nb, 32 * W), dtype=torch.int32,
+                            device=dev, generator=gen)
+        thr[:, -7:] = FLOOR_NEVER
+        args = (bits, loc, pb, pg, cthr, thr)
+        label = f"tall nb={nb} P={P} s_block={s_block} K={Kw}"
+        counts, mask = pair_count(*args)
+        want = pair_count_plain(*args)
+        torch.cuda.synchronize()
+        err = max(max_abs_err(torch, counts, want[0]),
+                  max_abs_err(torch, mask, want[1]))
+        if err:
+            raise AssertionError(f"pair_count {label}: max abs err {err}")
+        del want
+        ms = time_ms(torch, lambda: pair_count(*args, rows_checked=True))
+        ms_p = time_ms(torch, lambda: pair_count_plain(*args), 2)
+        sort_ms = time_ms(torch, lambda: block_order(pg, nb))
+        rows = torch.unique(pg.long()[:, None] * (s_block + 1)
+                            + loc[pb.long()]).numel()
+        bd = bound(rows * W * 4 + torch.unique(pb).numel() * (Kw + 1) * 4
+                   + nb * 32 * W * 4 + nbytes(pb, pg, counts, mask))
+        VARIANT_OF[label] = pair_count_variant(W, s_block)
+        log(f"phase 3 pair_count [{label}] W={W}: exact (max abs err 0, "
+            f"{int(torch.count_nonzero(mask))} mask words set); kernel "
+            f"{ms:.3f} ms ({VARIANT_OF[label]} variant, block sort "
+            f"included; the sort alone {sort_ms:.3f} ms), plain "
+            f"{ms_p:.3f} ms, bound {bd[0]:.4f} ms ({bd[1]}, {rows} rows "
+            f"touched), kernel / bound {ms / bd[0]:.2f}")
+        res["pair_count"].append((label, err, ms, ms_p, bd))
+        del bits, loc, counts, mask, args
+        torch.cuda.empty_cache()
+    return res
 
 
 def phase_pass2(torch, dev) -> dict:
@@ -483,7 +601,9 @@ def phase_pass2(torch, dev) -> dict:
     from kmcp_tpu_torch.search.group_count import (
         gemm_slabs, group_count, group_count_plain, s_pad_for,
     )
-    from kmcp_tpu_torch.search.pair_count import pair_count, pair_count_plain
+    from kmcp_tpu_torch.search.pair_count import (
+        pair_count, pair_count_plain, pair_count_variant,
+    )
 
     rng = np.random.default_rng(2025)
     B, s_block, W = 16_384, 3_578, 128
@@ -541,6 +661,7 @@ def phase_pass2(torch, dev) -> dict:
                             + loc[pb.long()]).numel()
         bd = bound(rows * W * 4 + reads_used * (Kw + 1) * 4
                    + blocks_used * 32 * W * 4 + nbytes(pb, pg, counts, mask))
+        VARIANT_OF[label] = pair_count_variant(W, s_block)
         log(f"phase 3 pair_count [{label}] s_block={s_block} W={W} K={Kw}: "
             f"exact (max abs err 0, {n_set} mask words set); kernel "
             f"{ms:.3f} ms (block sort included), plain {ms_p:.3f} ms, bound "
@@ -808,16 +929,27 @@ def counted_run(fn, *args, **kwargs):
     kernels = kernel_wrappers()
     for k in kernels.values():
         k.launches = 0
+        for v in getattr(k, "by_variant", {}):
+            k.by_variant[v] = 0
     t0 = time.time()
     out = fn(*args, **kwargs)
     wall = time.time() - t0
     return out, {n: k.launches for n, k in kernels.items()}, wall
 
 
+def variant_launches() -> dict:
+    """K2''s and K5''s launches by variant since the last counted_run
+    ("count_mask/ring": n, ...), the variants that launched only."""
+    from kmcp_tpu_torch.parallel.dryrun import kernel_wrappers
+
+    return {f"{n}/{v}": c for n, k in kernel_wrappers().items()
+            for v, c in getattr(k, "by_variant", {}).items() if c}
+
+
 def searched(db: str, out: str, **kwargs) -> dict:
     """run_search(db, out_file=out, **kwargs) as counted_run runs it ->
-    its TSV bytes, ``out``, stats, wall seconds, (total, matched) and
-    launches."""
+    its TSV bytes, ``out``, stats, wall seconds, (total, matched),
+    launches and K2''s and K5''s launches by variant."""
     from kmcp_tpu_torch.commands.search import run_search
 
     stats: dict = {}
@@ -826,7 +958,8 @@ def searched(db: str, out: str, **kwargs) -> dict:
     with open(out, "rb") as f:
         tsv = f.read()
     return {"tsv": tsv, "out": out, "stats": stats, "wall": wall,
-            "totals": totals, "launches": launches}
+            "totals": totals, "launches": launches,
+            "variants": variant_launches()}
 
 
 @contextlib.contextmanager
@@ -1013,22 +1146,31 @@ def stage_timers(torch, acc: dict):
             setattr(obj, name, fn)
 
 
-def phase_screened(torch, dev, ks: str, reads: str, n_source: int) -> dict:
+def index_dbs(ks: str, jobs: dict) -> float:
+    """Index phase 4's k-mer files ``ks`` into each DB of ``jobs`` (out
+    dir -> the ``index`` options after ``-I ks -O out``), all at once
+    (``run_all``: each reads all 131,072 k-mer files); returns the wall
+    seconds."""
+    t0 = time.time()
+    run_all([["index", "-I", ks, "-O", db, *opts, "--force"]
+             for db, opts in jobs.items()])
+    return time.time() - t0
+
+
+SCREENED_OPTS = ["-n", "1", "-f", "0.3", "--tpu-native",
+                 "--native-block-targets", str(BLOCK_TARGETS),
+                 "--block-screen", "--uniform-sigs"]
+
+
+def phase_screened(torch, dev, db: str, index_s: float, reads: str,
+                   n_source: int) -> dict:
     """Phase 6: the screened main path on a 32-block DB of phase 4's
-    chunks, pass2="gemm", "pair" and "auto" on the card against the same
-    path with the kernels bound to their plain versions on the card
-    (pass2="pair"); then a stage-timed run of the gemm and pair routes."""
-    from kmcp_tpu_torch.cli import main as cli
+    chunks (``db``, indexed in ``index_s`` beside phase 14's DBs),
+    pass2="gemm", "pair" and "auto" on the card against the same path with
+    the kernels bound to their plain versions on the card (pass2="pair");
+    then a stage-timed run of the gemm and pair routes."""
     from kmcp_tpu_torch.search.engine import SearchOptions
     from kmcp_tpu_torch.search.screen import pass2_kernel
-
-    db = os.path.join(SCRATCH, "screened", "db")
-    t0 = time.time()
-    if cli(["-q", "index", "-I", ks, "-O", db, "-n", "1", "-f", "0.3",
-            "--tpu-native", "--native-block-targets", str(BLOCK_TARGETS),
-            "--block-screen", "--uniform-sigs", "--force"]):
-        raise RuntimeError("index of the screened DB failed")
-    index_s = time.time() - t0
 
     def search(pass2: str, tag: str) -> dict:
         return searched(db, os.path.join(SCRATCH, f"screened.{tag}.tsv"),
@@ -1064,7 +1206,8 @@ def phase_screened(torch, dev, ks: str, reads: str, n_source: int) -> dict:
             raise AssertionError(f"{tag}: launches {la}")
     log(f"phase 6 DB: {st['n_blocks']} blocks x {rows_per_block} Bloom rows "
         f"x {st['words']} words ({32 * st['words']} targets a block), union "
-        f"screen {st['union_rows']} rows; indexed in {index_s:.1f} s")
+        f"screen {st['union_rows']} rows; indexed in {index_s:.1f} s, "
+        "beside phase 14's two DBs")
     for p2, run in runs.items():
         log(f"phase 6 screened {p2}: TSV byte-identical to the plain run "
             f"({len(run['tsv'])} bytes, {run['totals'][1]}/{run['totals'][0]}"
@@ -1186,23 +1329,40 @@ def check_plain(tag: str, run: dict, ref: dict, route: str,
         raise AssertionError(f"{tag}: launches {la}")
 
 
-def sketch_db(kind: str, gdir: str) -> str:
-    """A "minimizer" (compute -W 5) or "syncmer" (-S 11) DB of the genomes
-    in ``gdir`` x 64 chunks, k = 21, one block (-n 1 -f 0.3 --tpu-native),
-    through the port's command line."""
-    from kmcp_tpu_torch.cli import main as cli
+def run_all(cmds: list[list[str]]) -> None:
+    """The port's command lines ``python -m kmcp_tpu_torch <cmd>``, all
+    started at once (DB builds, which nothing else overlaps); raises if
+    one fails."""
+    procs = [(cmd, subprocess.Popen(
+        [sys.executable, "-m", "kmcp_tpu_torch", "-q", *cmd], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for cmd in cmds]
+    for cmd, p in procs:
+        out = p.communicate()[0]
+        if p.returncode:
+            raise RuntimeError(f"{cmd[0]} failed: {cmd}\n{out}")
 
-    flag = {"minimizer": ["-W", "5"], "syncmer": ["-S", "11"]}[kind]
-    ks = os.path.join(SCRATCH, "sketch", kind, "ks")
-    db = os.path.join(SCRATCH, "sketch", kind, "db")
-    if cli(["-q", "compute", "-I", gdir, "-O", ks, "-k", str(K), *flag,
-            "-n", str(WIDE_CHUNKS), "-l", str(READ_LEN), "--force"]):
-        raise RuntimeError(f"compute of the {kind} DB failed")
-    if cli(["-q", "index", "-I", ks, "-O", db, "-n", "1", "-f", "0.3",
-            "--tpu-native", "--native-block-targets",
-            str(SKETCH_GENOMES * WIDE_CHUNKS), "--force"]):
-        raise RuntimeError(f"index of the {kind} DB failed")
-    return db
+
+SKETCH_KINDS = {"minimizer": ["-W", "5"], "syncmer": ["-S", "11"]}
+
+
+def sketch_dbs(gdir: str) -> tuple[dict, float]:
+    """A "minimizer" (compute -W 5) and a "syncmer" (-S 11) DB of the
+    genomes in ``gdir`` x 64 chunks, k = 21, one block (-n 1 -f 0.3
+    --tpu-native), through the port's command line, the two built at once
+    -> ({kind: DB}, wall seconds)."""
+    t0 = time.time()
+    root = os.path.join(SCRATCH, "sketch")
+    run_all([["compute", "-I", gdir, "-O", os.path.join(root, kind, "ks"),
+              "-k", str(K), *flag, "-n", str(WIDE_CHUNKS), "-l",
+              str(READ_LEN), "--force"]
+             for kind, flag in SKETCH_KINDS.items()])
+    dbs = {kind: os.path.join(root, kind, "db") for kind in SKETCH_KINDS}
+    run_all([["index", "-I", os.path.join(root, kind, "ks"), "-O", db, "-n",
+              "1", "-f", "0.3", "--tpu-native", "--native-block-targets",
+              str(SKETCH_GENOMES * WIDE_CHUNKS), "--force"]
+             for kind, db in dbs.items()])
+    return dbs, time.time() - t0
 
 
 def sketch_genomes(genome_src: str, pool) -> str:
@@ -1221,12 +1381,9 @@ def phase_sketch(torch, dev, genome_src: str, pool, reads: str,
     for syncmers, the window selection, the dense tail) against the same
     path with the kernels bound to their plain versions on the card; then
     a stage-timed rerun."""
-    gdir = sketch_genomes(genome_src, pool)
+    dbs, build_s = sketch_dbs(sketch_genomes(genome_src, pool))
     out = {"launches": {}, "breakdown": {}, "db": {}, "ref": {}}
-    for kind in ("minimizer", "syncmer"):
-        t0 = time.time()
-        db = sketch_db(kind, gdir)
-        build_s = time.time() - t0
+    for kind, db in dbs.items():
 
         def search(tag: str) -> dict:
             return searched(db, os.path.join(SCRATCH, f"sketch.{kind}.{tag}"
@@ -1249,8 +1406,9 @@ def phase_sketch(torch, dev, genome_src: str, pool, reads: str,
         src, wrong = source_best_hits(run["out"])
         share = (len(src) - len(wrong)) / n_source
         log(f"{tag}: DB {SKETCH_GENOMES * WIDE_CHUNKS} targets, "
-            f"{st['rows']} Bloom rows x {st['words']} words, built in "
-            f"{build_s:.1f} s; TSV byte-identical to the plain run "
+            f"{st['rows']} Bloom rows x {st['words']} words, built beside "
+            f"the other sketch DB in {build_s:.1f} s; TSV byte-identical to "
+            "the plain run "
             f"({len(run['tsv'])} bytes, {run['totals'][1]}/"
             f"{run['totals'][0]} reads matched); {share:.4f} of the "
             f"{n_source} source reads best-hit their genome (not gated); "
@@ -1438,6 +1596,186 @@ def phase_engine(torch, dev, genome_src: str, pool, wide_db: str,
         f"wall {run['wall']:.3f} s, host {host['wall']:.3f} s; "
         f"launches {la}")
     out["launches"]["no-screen"] = la
+    return out
+
+
+# ------------------------------------------------------------- phase 14
+# tall rows: phase 4's k-mer files at -f 0.01
+
+TALL_FPR = "0.01"
+TALL_EVERY = 4  # every 4th read or pair: 16,384 of phase 4's and 7's
+
+
+@contextlib.contextmanager
+def bound_recorder(torch, acc: dict):
+    """Record, beside the stage timers, each K2' launch of the dense tail
+    and each K5' launch of pass 2: acc["count_mask_bound_s"] and
+    acc["pair_count_bound_s"] sum the bound of each launch (the rows its
+    locations touch read once, every other input and output once, at the
+    card's memory rate), acc["count_mask_calls"] / ["pair_count_calls"]
+    count them.  The row counts are taken outside the timed calls."""
+    from kmcp_tpu_torch.search import device_step, screen
+
+    saved = (device_step.count_mask, screen.pair_count)
+
+    def count(bits, loc, cthr, thr, rows_checked=False):
+        out = saved[0](bits, loc, cthr, thr, rows_checked=rows_checked)
+        rows = torch.unique(loc).numel()
+        n = rows * bits.shape[1] * 4 + nbytes(loc, cthr, thr, *out)
+        acc["count_mask_bound_s"] = (acc.get("count_mask_bound_s", 0.0)
+                                     + n / HBM_BYTES_PER_S)
+        acc["count_mask_calls"] = acc.get("count_mask_calls", 0) + 1
+        return out
+
+    def pair(bits, loc, pb, pg, cthr, thr, rows_checked=False):
+        out = saved[1](bits, loc, pb, pg, cthr, thr, rows_checked=rows_checked)
+        nb = thr.shape[0]
+        s_block = (bits.shape[0] - 1) // nb
+        real = pg < nb
+        rows = torch.unique(pg[real].long()[:, None] * (s_block + 1)
+                            + loc[pb[real].long()]).numel()
+        n = (rows * bits.shape[1] * 4 + torch.unique(pb[real]).numel()
+             * (loc.shape[1] + 1) * 4 + nbytes(thr, pb, pg, *out))
+        acc["pair_count_bound_s"] = (acc.get("pair_count_bound_s", 0.0)
+                                     + n / HBM_BYTES_PER_S)
+        acc["pair_count_calls"] = acc.get("pair_count_calls", 0) + 1
+        return out
+
+    device_step.count_mask, screen.pair_count = count, pair
+    try:
+        yield
+    finally:
+        device_step.count_mask, screen.pair_count = saved
+
+
+TALL_OPTS = {
+    "dense": ["-n", "1", "-f", TALL_FPR, "--tpu-native",
+              "--native-block-targets", str(WIDE_GENOMES * WIDE_CHUNKS)],
+    "screened": ["-n", "1", "-f", TALL_FPR, "--tpu-native",
+                 "--native-block-targets", str(BLOCK_TARGETS),
+                 "--block-screen", "--uniform-sigs"],
+}
+
+
+def tall_db(name: str) -> str:
+    return os.path.join(SCRATCH, "tall", f"{name}.db")
+
+
+def phase_tall(torch, dev, index_s: float, reads: str, pair_files) -> dict:
+    """Phase 14 ("tall"): phase 4's k-mer files indexed again at ``-f
+    0.01`` (a row count of a real KMCP DB: about 127k rows a block, where
+    K2' and K5' take the row ring) as (i) one ``--tpu-native`` block of
+    131,072 targets and (ii) ``--block-screen --uniform-sigs``, 32 blocks
+    of 4,096 (``tall_db``, built beside phase 6's DB in ``index_s``);
+    every 4th of phase 4's reads and of phase 7's pairs (16,384 each)
+    searched on each DB on the card with stage timers, each TSV
+    byte-identical to the same search with the kernels bound to their
+    plain versions on the card and to ``--backend host``, every source
+    read's best hit its genome; K2' and K5' launched on the ring (the
+    gather only for pass 1's one-word union rows), K2''s and K5''s summed
+    bounds beside their timed launches; and a ``pass2="gemm"`` search of
+    (ii) (K6' at these rows) the plain run's bytes."""
+    root = os.path.join(SCRATCH, "tall")
+    sub = os.path.join(root, "reads.fq")
+    fastq_every(reads, sub, TALL_EVERY)
+    subp = (os.path.join(root, "pairs.r1.fq"),
+            os.path.join(root, "pairs.r2.fq"))
+    for src, dst in zip(pair_files, subp):
+        fastq_every(src, dst, TALL_EVERY)
+    n = N_READS // TALL_EVERY
+    n_src = {"reads": 0, "pairs": 0}
+    for kind, path in (("reads", sub), ("pairs", subp[0])):
+        with open(path) as f:
+            n_src[kind] = sum(1 for i, line in enumerate(f)
+                              if i % 4 == 0 and line.startswith("@r"))
+    dbs = {name: (tall_db(name), index_s) for name in TALL_OPTS}
+
+    out = {"launches": {}, "variants": {}, "stages": {}}
+    for (name, (db, index_s)), (kind, query) in [
+            (d, q) for d in dbs.items()
+            for q in (("reads", {"files": [sub]}),
+                      ("pairs", {"read1": subp[0], "read2": subp[1]}))]:
+        tag = f"phase 14 {name} {kind}"
+        path = os.path.join(root, f"{name}.{kind}")
+
+        def search(which: str, **kw) -> dict:
+            return searched(db, f"{path}.{which}.tsv", device=dev, **query,
+                            **kw)
+
+        acc: dict = {}
+        with stage_timers(torch, acc), bound_recorder(torch, acc):
+            run = search("cuda", pass2="auto")
+        with plain_kernels():
+            ref = search("plain", pass2="auto")
+        host = host_searched(torch, tag, db, f"{path}.host.tsv", **query)
+        if any(ref["launches"].values()):
+            raise AssertionError(f"{tag}: the plain run launched a kernel")
+        for other, what in ((ref, "the plain run"), (host, "--backend host")):
+            if run["tsv"] != other["tsv"] or run["totals"] != other["totals"]:
+                raise AssertionError(f"{tag}: TSV differs from {what}")
+        if run["totals"][0] != n:
+            raise AssertionError(f"{tag}: totals {run['totals']}")
+        check_best_hits(run["out"], n_src[kind])
+        st, la, va = run["stats"], run["launches"], run["variants"]
+        screened = name == "screened"
+        rows_block = st["rows"] // st["n_blocks"]
+        want = ["hash_loc", "count_mask"] + (["pair_count"] if screened
+                                             else [])
+        ring = ["count_mask/ring"] if not screened else ["pair_count/ring"]
+        # pass 1 counts one-word union rows: the gather; nothing else
+        # gathers at these widths
+        gathers = {k: c for k, c in va.items() if k.endswith("/gather")}
+        idle = dev.type == "cuda" and (
+            min(la[k] for k in want) == 0
+            or min(va.get(k, 0) for k in ring) == 0)
+        if (idle or any(la[k] for k in la if k not in want)
+                or (gathers and (not screened or set(gathers)
+                                 != {"count_mask/gather"}))
+                or st["slow_rows"] or (st["n_blocks"] > 1) != screened):
+            raise AssertionError(f"{tag}: launches {la}, variants {va}, "
+                                 f"stats {st}")
+        if screened and va.get("count_mask/gather", 0) != la["count_mask"]:
+            raise AssertionError(f"{tag}: pass 1 variants {va}")
+        out["launches"][tag] = la
+        out["variants"][tag] = va
+        log(f"{tag}: DB {st['n_blocks']} block(s) x {rows_block} Bloom rows "
+            f"x {st['words']} words (indexed at -f {TALL_FPR}, three DBs "
+            f"at once in {index_s:.1f} s); TSV byte-identical to the plain "
+            f"run and to --backend host ({len(run['tsv'])} bytes, "
+            f"{run['totals'][1]}/{n} {kind} matched, all {n_src[kind]} "
+            f"source {kind} best-hit their genome); run_search wall "
+            f"{run['wall']:.3f} s (stage-timed), plain {ref['wall']:.3f} "
+            f"s, host {host['wall']:.3f} s; launches {la}, by variant {va}")
+        if screened and kind == "reads":
+            # a pass2="gemm" request reaches K6' at these rows
+            gemm = search("gemm", pass2="gemm")
+            if gemm["tsv"] != ref["tsv"] or gemm["stats"]["pass2"] != "gemm" \
+                    or (dev.type == "cuda"
+                        and gemm["launches"]["group_count"] == 0):
+                raise AssertionError(f"{tag} gemm: TSV or launches differ "
+                                     f"({gemm['launches']})")
+            log(f"{tag} pass2=gemm: K6' at {rows_block} rows a block, TSV "
+                f"byte-identical to the plain run; run_search wall "
+                f"{gemm['wall']:.3f} s, launches {gemm['launches']}")
+        kern = "dense_count_kernel" if not screened else "pass2_kernel"
+        which = "count_mask" if not screened else "pair_count"
+        calls = acc.pop(f"{which}_calls", 0)
+        bound_s = acc.pop(f"{which}_bound_s", 0.0)
+        acc.pop("count_mask_calls", None)
+        acc.pop("count_mask_bound_s", None)
+        if "pass2_route" in acc:
+            acc["compaction"] = (acc.pop("pass2_route")
+                                 - acc.get("pass2_kernel", 0.0))
+        calls = max(calls, 1)
+        out["stages"][tag] = {**acc, f"{which}_ms": acc[kern] / calls * 1e3,
+                              f"{which}_bound_ms": bound_s / calls * 1e3}
+        log(f"{tag} stages ({STAGES}): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in acc.items())
+            + f"; run_search wall {run['wall']:.3f}; {which} "
+            f"{acc[kern] / calls * 1e3:.3f} ms a launch over {calls} "
+            f"launches (synchronised host clock), their bound "
+            f"{bound_s / calls * 1e3:.4f} ms a launch")
+    shutil.rmtree(root, ignore_errors=True)
     return out
 
 
@@ -1911,8 +2249,9 @@ def phase_sharded(torch, dev, smi: str, wide_db: str, narrow_db: str,
 
 
 # ------------------------------------------------------------- phase 12
-# batches in flight: one at a time and the JAX default, in turns
-DEPTHS = (1, 4, 4, 1)
+# batches in flight: one at a time and the JAX default, one turn each so
+# that the smoke stays inside its time bound
+DEPTHS = (1, 4)
 
 
 def busy_share(trace_path: str, wall_s: float) -> tuple:
@@ -1958,7 +2297,7 @@ def phase_inflight(torch, dev, smi: str, cells: list, wide: tuple,
                    flushes: list) -> dict:
     """Phase 12: batches in flight on the card.  (a) every cell of
     ``cells`` (name, DB, run_search's query arguments, pass2, the plain
-    run's TSV, unit) through ``run_search`` at depths 1, 4, 4, 1, each TSV
+    run's TSV, unit) through ``run_search`` at depths 1 and 4, each TSV
     byte-identical to the other depth's and to the plain versions' run,
     every kernel of its path launched; its wall, e2e rate and peak device
     memory.  (b) one batch of every tail of ``flushes`` (label, DB, pass2,
@@ -2010,8 +2349,8 @@ def phase_inflight(torch, dev, smi: str, cells: list, wide: tuple,
         out["walls"][name] = walls
         log(f"phase 12 (a) {name}: walls at depth 1 "
             f"{', '.join(f'{w:.3f}' for w in walls[1])} s, at depth 4 "
-            f"{', '.join(f'{w:.3f}' for w in walls[4])} s (turns 1, 4, 4, "
-            f"1); depth 4 / depth 1 of the sums "
+            f"{', '.join(f'{w:.3f}' for w in walls[4])} s (turns "
+            f"{', '.join(map(str, DEPTHS))}); depth 4 / depth 1 of the sums "
             f"{sum(walls[4]) / sum(walls[1]):.3f} ({smi})")
 
     # (b) one batch of every tail flushed without the host waiting
@@ -2311,6 +2650,8 @@ def main() -> int:
     t0 = time.time()
     kern = phase_kernels(torch, dev)
     kern.update(phase_pass2(torch, dev))
+    for name, rows in phase_tall_kernels(torch, dev).items():
+        kern[name] += rows
     walls["3 kernels"] = time.time() - t0
 
     os.makedirs(SCRATCH, exist_ok=True)
@@ -2342,8 +2683,13 @@ def main() -> int:
     walls["5 narrow"] = time.time() - t0
 
     t0 = time.time()
-    screened = phase_screened(torch, dev, os.path.join(SCRATCH, "wide", "ks"),
-                              wide_reads, wide_source)
+    wide_ks = os.path.join(SCRATCH, "wide", "ks")
+    screened_db = os.path.join(SCRATCH, "screened", "db")
+    index_s = index_dbs(wide_ks, {screened_db: SCREENED_OPTS,
+                                  **{tall_db(n): o
+                                     for n, o in TALL_OPTS.items()}})
+    screened = phase_screened(torch, dev, screened_db, index_s, wide_reads,
+                              wide_source)
     walls["6 screened"] = time.time() - t0
 
     t0 = time.time()
@@ -2410,6 +2756,9 @@ def main() -> int:
         [("wide-131k", wide_db, wide_reads, wide["out"]),
          ("narrow-150", narrow_db, reads, narrow["out"])])
     walls["13 host"] = time.time() - t0
+    t0 = time.time()
+    tall = phase_tall(torch, dev, index_s, wide_reads, pair_files)
+    walls["14 tall"] = time.time() - t0
     for name, w in walls.items():
         log(f"phase {name}: {w:.1f} s")
 
@@ -2438,7 +2787,8 @@ def main() -> int:
                       for p, n in engine["launches"].items()},
                    **{p: n[name] for p, n in sharded["launches"].items()},
                    **{p: n[name] for p, n in inflight["launches"].items()},
-                   **{p: n[name] for p, n in host["launches"].items()}}
+                   **{p: n[name] for p, n in host["launches"].items()},
+                   **{p: n[name] for p, n in tall["launches"].items()}}
 
         def timed(r) -> dict:
             # only K6' has a one-call library counterpart; K1''s ms is the
@@ -2446,6 +2796,8 @@ def main() -> int:
             out = {"shape": r[0], "ms": r[2], "plain_ms": r[3],
                    "bound_ms": r[4][0], "bound_by": r[4][1],
                    "library_ms": r[6] if len(r) > 6 else None}
+            if r[0] in VARIANT_OF:
+                out["variant"] = VARIANT_OF[r[0]]
             if name == "hash_loc":
                 out["call_ms"] = r[5]
             if len(r) > 7:  # at the screened tail's padded pair budget

@@ -231,10 +231,3 @@ BS_HD void bitslice_expand4(uint32_t x, uint32_t hi4, int (&v)[4]) {
   for (int e = 0; e < 4; ++e)
     v[e] = (int)(bs::byte_perm(x, 0u, 0x4440u + e) | ((hi4 >> e) & 1u) << 8);
 }
-
-// Planes needed for counts up to max_count (at least 1).
-inline int bitslice_levels(long long max_count) {
-  int nlev = 1;
-  while (nlev < 32 && (1LL << nlev) <= max_count) ++nlev;
-  return nlev;
-}

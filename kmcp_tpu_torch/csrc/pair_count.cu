@@ -19,21 +19,25 @@
 // GB there) from rows the hash picks, and pairs in read order stream every
 // block's slab through L2 in no order.
 //
-// What the design does about it: block-stationary, on K2''s slice counter
+// What the design does about it: block-stationary, on K2''s counters
 // (slice.cuh).  The wrapper sorts the pairs by block on the device (a
-// stable sort of pg: `order`, and each block's range `seg`); CTA (x, g, z)
-// copies word tile x (8 words) of block g's s_block rows plus the sentinel
-// row into shared memory once (115 KB at 3,578 rows, 16-byte cp.async), so
-// a block's slab leaves device memory once per tile, and counts the z-th
-// share of g's pairs in rounds of 128 pairs x 8 words: locations staged
-// double-buffered, eight windows per carry-save add, the byte-plane
-// epilogue with fused floors (8 planes single-end, 9 for paired rows up to
-// K = 511), and 512-byte warp stores to each pair's own row p, so
-// read-major order needs no restoring.  Blocks narrower than one
-// tile (W < 8) or too tall for shared memory (over 4,053 rows on an H100's
-// 227 KB: slice.cuh slice_smem) take the gather variant: a
-// thread per (pair, word) in the given order, eight loads in flight into
-// the same carry-save counter, 16-byte count stores.
+// stable sort of pg: `order`, and each block's range `seg`).  Where one
+// tile of every row of a block fits in shared memory (slice: 8 words, up
+// to 5,077 rows), CTA (x, g, z) copies word tile x of block g's s_block
+// rows plus the sentinel row into shared memory once (16-byte cp.async,
+// 160 KB at 5,077 rows), so a block's slab
+// leaves device memory once per tile, and counts the z-th share of g's
+// pairs in rounds: locations staged double-buffered, eight windows per
+// carry-save add, the byte-plane epilogue with fused floors (8 planes
+// single-end, 9 for paired rows up to K = 511), and 512-byte warp stores
+// to each pair's own row p, so read-major order needs no restoring.
+// Taller blocks (the rows of a real KMCP DB: about 2^20 at GTDB scale and
+// -f 0.3) take the row ring: CTA (x, g, z) streams the rows its share of
+// g's pairs hit, each warp 32 words of one pair at a time through its own
+// cp.async ring in shared memory, into the same counter and epilogue.  Blocks narrower than one
+// tile (W < 8) take the gather variant: a thread per (pair, word) in the
+// given order, eight loads in flight into the same carry-save counter,
+// 16-byte count stores.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -47,9 +51,22 @@ using slice::WT;
 
 constexpr int GATHER_THREADS = 128;
 
-// CTA (x, g, z): word tile x of block g, pairs order[lo .. hi) with lo, hi
-// the z-th of `splits` shares (whole rounds of 128) of g's range seg[g] ..
-// seg[g + 1].
+// Pairs order[lo .. hi) of CTA (x, g, z): the z-th of `splits` shares
+// (whole rounds of `round` pairs) of block g's range seg[g] .. seg[g + 1].
+struct Share {
+  int lo, hi;
+};
+__device__ __forceinline__ Share block_share(const int32_t* __restrict__ seg,
+                                             int g, int splits, int round) {
+  const int lo0 = __ldg(seg + g), hi0 = __ldg(seg + g + 1);
+  const int share =
+      ((hi0 - lo0 + splits - 1) / splits + round - 1) / round * round;
+  const int lo = lo0 + blockIdx.z * share;
+  return {lo, min(hi0, lo + share)};
+}
+
+// The slice variant: CTA (x, g, z) counts word tile x of block g for its
+// share of g's pairs.
 template <int NL>
 __global__ void __launch_bounds__(SLICE_THREADS)
 pair_count_slice(const uint32_t* __restrict__ bits, int W, int s_block,
@@ -62,16 +79,35 @@ pair_count_slice(const uint32_t* __restrict__ bits, int W, int s_block,
                  int32_t* __restrict__ counts, uint32_t* __restrict__ mask) {
   extern __shared__ __align__(16) uint32_t smem[];
   const int g = blockIdx.y;
-  const int lo0 = __ldg(seg + g), hi0 = __ldg(seg + g + 1);
-  const int share = ((hi0 - lo0 + splits - 1) / splits + slice::SLICE_READS -
-                     1) / slice::SLICE_READS * slice::SLICE_READS;
-  const int lo = lo0 + blockIdx.z * share;
-  const int hi = min(hi0, lo + share);
-  if (lo >= hi) return;
+  const Share sh = block_share(seg, g, splits, slice::SLICE_READS);
+  if (sh.lo >= sh.hi) return;
   slice::slice_count<NL, 1>(
       bits + (size_t)g * s_block * W, s_block,
-      bits + (size_t)n_blocks * s_block * W, W, blockIdx.x * WT, loc, K, cthr,
-      thr + (size_t)g * 32 * W, counts, mask, lo, hi,
+      bits + (size_t)n_blocks * s_block * W, W, blockIdx.x * WT, loc, K,
+      cthr, thr + (size_t)g * 32 * W, counts, mask, sh.lo, sh.hi,
+      slice::PairRows{order, pb}, smem);
+}
+
+// The ring variant: CTA (x, g, z) streams words x * span .. of block g's
+// rows for its share of g's pairs.
+template <int NL>
+__global__ void __launch_bounds__(geo::RING_THREADS, NL <= 9 ? 2 : 1)
+pair_count_ring(const uint32_t* __restrict__ bits, int W, int s_block,
+                int n_blocks, const int32_t* __restrict__ loc, int K,
+                const int32_t* __restrict__ pb,
+                const int32_t* __restrict__ order,
+                const int32_t* __restrict__ seg, int splits, int span,
+                const int32_t* __restrict__ cthr,
+                const int32_t* __restrict__ thr,
+                int32_t* __restrict__ counts, uint32_t* __restrict__ mask) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int g = blockIdx.y;
+  const Share sh = block_share(seg, g, splits, geo::ring_reads(span));
+  if (sh.lo >= sh.hi) return;
+  slice::ring_count<NL, 1>(
+      bits + (size_t)g * s_block * W, s_block,
+      bits + (size_t)n_blocks * s_block * W, W, blockIdx.x * span, span, loc,
+      K, cthr, thr + (size_t)g * 32 * W, counts, mask, sh.lo, sh.hi,
       slice::PairRows{order, pb}, smem);
 }
 
@@ -123,42 +159,86 @@ pair_count_gather(const uint32_t* __restrict__ bits, int W, int s_block,
 
 using slice::DeviceInfo;
 
+struct Args {
+  const uint32_t* bits;
+  int W, n_blocks, s_block;
+  const int32_t* loc;
+  int K;
+  const int32_t *pb, *pg;
+  int P;
+  const int32_t *order, *seg, *cthr, *thr;
+  int32_t* counts;
+  uint32_t* mask;
+  cudaStream_t stream;
+};
+
+// Shares of each block's pairs: one CTA per (span, block) when that fills
+// the card `fill` times over; else each block's pairs are split so that it
+// does, as if they were spread evenly, in whole rounds of `round` pairs.
+int splits_for(const DeviceInfo& dev, const Args& a, int tiles, int fill,
+               int round) {
+  const long long cells = (long long)tiles * a.n_blocks;
+  const long long want = (fill * (long long)dev.sms + cells - 1) / cells;
+  const long long rounds = (a.P / a.n_blocks + round - 1) / round;
+  return (int)(want < rounds ? want : rounds > 1 ? rounds : 1);
+}
+
 template <int NL>
-cudaError_t launch(const uint32_t* bits, int W, int n_blocks, int s_block,
-                   const int32_t* loc, int K, const int32_t* pb,
-                   const int32_t* pg, int P, const int32_t* order,
-                   const int32_t* seg, const int32_t* cthr,
-                   const int32_t* thr, int32_t* counts, uint32_t* mask,
-                   cudaStream_t stream) {
+cudaError_t launch_slice(const DeviceInfo& dev, const Args& a) {
+  const size_t smem = geo::slice_smem(a.s_block + 1, 1);
+  const cudaError_t err =
+      cudaFuncSetAttribute(pair_count_slice<NL>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (err != cudaSuccess) return err;
+  // twice over (512 CTAs at 32 blocks of 16 tiles, 2,048 at 128)
+  const int tiles = (a.W + WT - 1) / WT;
+  const int splits = splits_for(dev, a, tiles, 2, slice::SLICE_READS);
+  const dim3 grid(tiles, a.n_blocks, splits);
+  pair_count_slice<NL><<<grid, SLICE_THREADS, smem, a.stream>>>(
+      a.bits, a.W, a.s_block, a.n_blocks, a.loc, a.K, a.pb, a.order, a.seg,
+      splits, a.cthr, a.thr, a.counts, a.mask);
+  return cudaSuccess;
+}
+
+template <int NL>
+cudaError_t launch_ring(const DeviceInfo& dev, const Args& a) {
+  const int span = geo::ring_span(a.W);
+  const size_t smem = geo::ring_smem(span, 1);
+  const cudaError_t err =
+      cudaFuncSetAttribute(pair_count_ring<NL>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (err != cudaSuccess) return err;
+  // about 8 CTAs an SM over the launch, as K2''s ring
+  const int tiles = (a.W + span - 1) / span;
+  const int splits = splits_for(dev, a, tiles, 8, geo::ring_reads(span));
+  const dim3 grid(tiles, a.n_blocks, splits);
+  pair_count_ring<NL><<<grid, geo::RING_THREADS, smem, a.stream>>>(
+      a.bits, a.W, a.s_block, a.n_blocks, a.loc, a.K, a.pb, a.order, a.seg,
+      splits, span, a.cthr, a.thr, a.counts, a.mask);
+  return cudaSuccess;
+}
+
+template <int NL>
+cudaError_t launch(const Args& a) {
   DeviceInfo dev;
   cudaError_t err = slice::device_info(&dev);
   if (err != cudaSuccess) return err;
-  if (slice::use_slice(dev, W, s_block + 1, 1)) {
-    const size_t smem = slice::slice_smem(s_block + 1, 1);
-    err = cudaFuncSetAttribute(pair_count_slice<NL>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return err;
-    // one CTA per (tile, block) when that fills the card twice over (512
-    // at 32 blocks of 16 tiles, 2,048 at 128); else each block's pairs
-    // are split so that it does, as if they were spread evenly
-    const int tiles = (W + WT - 1) / WT;
-    const long long cells = (long long)tiles * n_blocks;
-    const long long fill = (2LL * dev.sms + cells - 1) / cells;
-    const long long rounds =
-        (P / n_blocks + slice::SLICE_READS - 1) / slice::SLICE_READS;
-    const int splits = (int)(fill < rounds ? fill : rounds > 1 ? rounds : 1);
-    const dim3 grid(tiles, n_blocks, splits);
-    pair_count_slice<NL><<<grid, SLICE_THREADS, smem, stream>>>(
-        bits, W, s_block, n_blocks, loc, K, pb, order, seg, splits, cthr, thr,
-        counts, mask);
-  } else {
-    const long long n = (long long)P * W;
-    const long long blocks = (n + GATHER_THREADS - 1) / GATHER_THREADS;
-    pair_count_gather<NL><<<(unsigned)blocks, GATHER_THREADS, 0, stream>>>(
-        bits, W, s_block, n_blocks, loc, K, pb, pg, P, cthr, thr, counts,
-        mask);
+  switch (slice::variant(dev, a.W, a.s_block + 1, 1)) {
+    case geo::GATHER: {
+      const long long n = (long long)a.P * a.W;
+      const long long blocks = (n + GATHER_THREADS - 1) / GATHER_THREADS;
+      pair_count_gather<NL><<<(unsigned)blocks, GATHER_THREADS, 0,
+                              a.stream>>>(
+          a.bits, a.W, a.s_block, a.n_blocks, a.loc, a.K, a.pb, a.pg, a.P,
+          a.cthr, a.thr, a.counts, a.mask);
+      break;
+    }
+    case geo::SLICE: err = launch_slice<NL>(dev, a); break;
+    default: err = launch_ring<NL>(dev, a);
   }
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -169,11 +249,11 @@ cudaError_t launch(const uint32_t* bits, int W, int n_blocks, int s_block,
 // [P] (pg == nb marks a padding pair: no variant reads a row for it, and
 // its counts row is not written); order int32 [P] (the pairs sorted by
 // block, stably, padding last) and seg int32 [nb + 1] (block g's pairs are
-// order[seg[g] .. seg[g+1]]), read only by the slice variant
-// (kmcp_pair_count_variant == 1); cthr int32 [B]; thr int32 [nb, 32 W];
+// order[seg[g] .. seg[g+1]]), read by every variant but the gather
+// (kmcp_pair_count_variant > 0); cthr int32 [B]; thr int32 [nb, 32 W];
 // counts int32 [P, 32 W] (16-byte aligned); mask int32/uint32 [P, W],
-// zeroed by the caller (the slice variant writes the rows of real pairs
-// only).  Returns the CUDA error of the launch.
+// zeroed by the caller (the slice and ring variants write the rows of real
+// pairs only).  Returns the CUDA error of the launch.
 extern "C" int kmcp_pair_count(const void* bits, int W, int n_blocks,
                                int s_block, const void* loc, int K,
                                const void* pb, const void* pg, int P,
@@ -181,40 +261,27 @@ extern "C" int kmcp_pair_count(const void* bits, int W, int n_blocks,
                                const void* cthr, const void* thr,
                                void* counts, void* mask, void* stream) {
   if (P <= 0 || W <= 0) return 0;
-  const int nlev = bitslice_levels(K);  // counts <= K
-  const auto* b = (const uint32_t*)bits;
-  const auto* l = (const int32_t*)loc;
-  const auto* b_ = (const int32_t*)pb;
-  const auto* g_ = (const int32_t*)pg;
-  const auto* o = (const int32_t*)order;
-  const auto* sg = (const int32_t*)seg;
-  const auto* ct = (const int32_t*)cthr;
-  const auto* t = (const int32_t*)thr;
-  auto* c = (int32_t*)counts;
-  auto* m = (uint32_t*)mask;
-  const auto s = (cudaStream_t)stream;
+  const Args a{(const uint32_t*)bits, W, n_blocks, s_block,
+               (const int32_t*)loc, K, (const int32_t*)pb, (const int32_t*)pg,
+               P, (const int32_t*)order, (const int32_t*)seg,
+               (const int32_t*)cthr, (const int32_t*)thr, (int32_t*)counts,
+               (uint32_t*)mask, (cudaStream_t)stream};
   cudaError_t err;
-  if (nlev <= 8)
-    err = launch<8>(b, W, n_blocks, s_block, l, K, b_, g_, P, o, sg, ct, t,
-                    c, m, s);
-  else if (nlev == 9)
-    err = launch<9>(b, W, n_blocks, s_block, l, K, b_, g_, P, o, sg, ct, t,
-                    c, m, s);
-  else if (nlev <= 16)
-    err = launch<16>(b, W, n_blocks, s_block, l, K, b_, g_, P, o, sg, ct, t,
-                     c, m, s);
-  else
-    err = launch<32>(b, W, n_blocks, s_block, l, K, b_, g_, P, o, sg, ct, t,
-                     c, m, s);
+  switch (geo::counter_planes(K)) {  // counts <= K
+    case 8: err = launch<8>(a); break;
+    case 9: err = launch<9>(a); break;
+    case 16: err = launch<16>(a); break;
+    default: err = launch<32>(a);
+  }
   return (int)err;
 }
 
-// The variant kmcp_pair_count runs at these shapes on the current device:
-// 1 slice (needs order and seg), 0 gather, or minus the CUDA error of the
-// device query.
+// The variant kmcp_pair_count runs at these shapes on the current device
+// (geometry.cuh geo::Variant; every one but the gather needs order and
+// seg), or minus the CUDA error of the device query.
 extern "C" int kmcp_pair_count_variant(int W, int s_block) {
   DeviceInfo dev;
   const cudaError_t err = slice::device_info(&dev);
   if (err != cudaSuccess) return -(int)err;
-  return slice::use_slice(dev, W, s_block + 1, 1) ? 1 : 0;
+  return slice::variant(dev, W, s_block + 1, 1);
 }

@@ -142,6 +142,8 @@ def load(so: str) -> ctypes.CDLL:
         vp, vp,
     ]
     lib.kmcp_pair_count.restype = i32
+    lib.kmcp_count_mask_variant.argtypes = [i32, i32, i32]
+    lib.kmcp_count_mask_variant.restype = i32
     lib.kmcp_pair_count_variant.argtypes = [i32, i32]
     lib.kmcp_pair_count_variant.restype = i32
     lib.kmcp_group_count.argtypes = [

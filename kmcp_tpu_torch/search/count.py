@@ -5,10 +5,11 @@ Port of the dense count family kmcp_tpu/search/pallas_count.py:146
 ``make_pallas_count`` (ring, ``masked=``), :363
 ``make_pallas_count_resident`` and :488 ``make_pallas_count_masked``: one
 entry point, ``kmcp_tpu_torch/csrc/count_mask.cu``, serves all three and
-every row width, through two CUDA variants it picks from the shapes (a
-shared-memory row slice for wide rows of few rows, a gather for the
-rest).  Targets are in natural order (t = 32 w + j); the TPU's bit-major
-lane layout is not ported.  ``count_mask_plain`` is the same
+every row width and count, through CUDA variants it picks from the
+shapes (``VARIANTS``: a shared-memory tile of every row for wide rows of
+up to 5,077 rows, a ring of streamed row segments for taller ones, a
+gather for rows narrower than 8 words).  Targets are in natural order
+(t = 32 w + j); the TPU's bit-major lane layout is not ported.  ``count_mask_plain`` is the same
 function in plain PyTorch, which CPU tensors take.
 
 Bloom words travel as int32 views of the uint32 words (torch lacks most
@@ -81,6 +82,26 @@ def check_rows(loc: torch.Tensor, n_rows: int):
         check_range(lo, hi, n_rows)
 
 
+# The variants kmcp_count_mask and kmcp_pair_count pick, by the code their
+# ``*_variant`` entry points return (csrc/geometry.cuh ``geo::Variant``).
+VARIANTS = ("gather", "slice", "ring")
+
+
+def variant_name(code: int, what: str) -> str:
+    """The name of variant ``code``; raises on a failed device query (a
+    negative code: minus the CUDA error)."""
+    if code < 0:
+        raise RuntimeError(f"{what} device query failed: cuda error {-code}")
+    return VARIANTS[code]
+
+
+def count_mask_variant(W: int, S_ext: int, h: int) -> str:
+    """The variant K2' runs for rows of W words, S_ext of them, h hashes,
+    on the current CUDA device."""
+    return variant_name(get_lib().kmcp_count_mask_variant(W, S_ext, h),
+                        "count_mask")
+
+
 def count_mask(bits: torch.Tensor, loc: torch.Tensor, cthr: torch.Tensor,
                thr: torch.Tensor, rows_checked: bool = False
                ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -100,6 +121,7 @@ def count_mask(bits: torch.Tensor, loc: torch.Tensor, cthr: torch.Tensor,
     W = bits.shape[1]
     counts = torch.empty((B, 32 * W), dtype=torch.int32, device=bits.device)
     mask = torch.empty((B, W), dtype=torch.int32, device=bits.device)
+    variant = count_mask_variant(W, bits.shape[0], h)
     stream = torch.cuda.current_stream(bits.device).cuda_stream
     rc = get_lib().kmcp_count_mask(
         bits.data_ptr(), W, bits.shape[0], loc.data_ptr(), B, K, h,
@@ -109,10 +131,12 @@ def count_mask(bits: torch.Tensor, loc: torch.Tensor, cthr: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"count_mask kernel launch failed: cuda error {rc}")
     count_mask.launches += 1
+    count_mask.by_variant[variant] += 1
     return counts, mask
 
 
 count_mask.launches = 0
+count_mask.by_variant = dict.fromkeys(VARIANTS, 0)
 
 
 def count_mask_plain(bits: torch.Tensor, loc: torch.Tensor,

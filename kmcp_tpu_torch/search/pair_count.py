@@ -7,7 +7,8 @@ Port of the Pallas kernel kmcp_tpu/search/pallas_count.py:658
 ``kmcp_tpu_torch/csrc/pair_count.cu``; ``pair_count_plain`` is the same
 function in plain PyTorch, which CPU tensors take.  Like the TPU kernel it
 counts a block's pairs against that block's rows held on chip (a word tile
-of them in shared memory), but it takes pairs in any order and the
+of them in shared memory, or for blocks too tall for a tile the rows its
+pairs hit, streamed through a ring), but it takes pairs in any order and the
 row-stacked matrix as it is: the wrapper sorts the pairs by block on the
 device (``block_order``) and the kernel writes row p of its outputs for
 pair p.  A pair whose block is ``nb`` is padding (the fixed-size pair list
@@ -21,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels._build import get_lib
-from .count import check_rows
+from .count import VARIANTS, check_rows, variant_name
 
 
 def _check(bits, loc, pb, pg, cthr, thr) -> int:
@@ -87,6 +88,13 @@ def floor_mask(counts: torch.Tensor, thr_rows: torch.Tensor,
     return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
 
 
+def pair_count_variant(W: int, s_block: int) -> str:
+    """The variant K5' runs for blocks of s_block rows of W words on the
+    current CUDA device."""
+    return variant_name(get_lib().kmcp_pair_count_variant(W, s_block),
+                        "pair_count")
+
+
 def pair_count(bits: torch.Tensor, loc: torch.Tensor, pb: torch.Tensor,
                pg: torch.Tensor, cthr: torch.Tensor, thr: torch.Tensor,
                rows_checked: bool = False
@@ -113,15 +121,12 @@ def pair_count(bits: torch.Tensor, loc: torch.Tensor, pb: torch.Tensor,
     mask = torch.zeros((P, W), dtype=torch.int32, device=bits.device)
     if P == 0:
         return counts, mask
-    lib = get_lib()
-    variant = lib.kmcp_pair_count_variant(W, s_block)
-    if variant < 0:
-        raise RuntimeError(f"pair_count device query failed: cuda error "
-                           f"{-variant}")
-    # the slice variant counts each block's pairs together
-    order, seg = block_order(pg, n_blocks) if variant == 1 else (pb, pb)
+    variant = pair_count_variant(W, s_block)
+    # every variant but the gather counts each block's pairs together
+    order, seg = ((pb, pb) if variant == "gather"
+                  else block_order(pg, n_blocks))
     stream = torch.cuda.current_stream(bits.device).cuda_stream
-    rc = lib.kmcp_pair_count(
+    rc = get_lib().kmcp_pair_count(
         bits.data_ptr(), W, n_blocks, s_block, loc.data_ptr(), K,
         pb.data_ptr(), pg.data_ptr(), P, order.data_ptr(), seg.data_ptr(),
         cthr.data_ptr(), thr.data_ptr(), counts.data_ptr(), mask.data_ptr(),
@@ -130,10 +135,12 @@ def pair_count(bits: torch.Tensor, loc: torch.Tensor, pb: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"pair_count kernel launch failed: cuda error {rc}")
     pair_count.launches += 1
+    pair_count.by_variant[variant] += 1
     return counts, mask
 
 
 pair_count.launches = 0
+pair_count.by_variant = dict.fromkeys(VARIANTS, 0)
 
 
 def pair_count_plain(bits: torch.Tensor, loc: torch.Tensor, pb: torch.Tensor,

@@ -40,13 +40,13 @@ NO_LOOP = [("for (; i + 8 <= kc; i += 8) {", "for (; i + 8 <= 0; i += 8) {"),
 VARIANTS = {
     "as_built": [],
     # 32-window location chunks at h = 1 too
-    "kc32": [("return h == 1 ? 64 : 32;", "return 32;")],
+    "kc32": [("(h == 1 ? 64 : 32)", "32")],
     # two CTAs per tile (each copies the tile's rows)
     "two_ctas_per_tile": [("(dev.sms + tiles - 1) / tiles",
                            "(4 * dev.sms + tiles - 1) / tiles")],
     # the tile copied word by word instead of by cp.async
-    "sync_slice_copy": [("const bool async = nw == WT",
-                         "const bool async = false && nw == WT")],
+    "sync_slice_copy": [("const bool async = nw == WT_",
+                         "const bool async = false && nw == WT_")],
     "no_count_loop": NO_LOOP,
     "no_count_stores": [(STORE, "            if (x == 0xdeadbeefu) "
                          + STORE.strip())],
@@ -73,7 +73,8 @@ def build(name: str, edits, root: str) -> ctypes.CDLL:
     shutil.rmtree(d, ignore_errors=True)
     shutil.copytree(_build.CSRC_DIR, d)
     for old, new in edits:
-        apply_edit(d, ("count_mask.cu", "slice.cuh"), old, new, name)
+        apply_edit(d, ("count_mask.cu", "slice.cuh", "geometry.cuh"), old, new,
+                   name)
     so = os.path.join(d, "lib.so")
     _build.compile_library(sorted(glob.glob(os.path.join(d, "*.cu"))), so)
     lib = ctypes.CDLL(so)

@@ -51,12 +51,15 @@ def test_count_mask_matches_pallas_ring(K, W):
     check_against_pallas_ring(K, W, 1)
 
 
-def check_against_pallas_ring(K, W, h):
-    """count_mask vs the masked ring kernel at one grid step."""
-    rng = np.random.default_rng(K * 1000 + W + h)
-    S = 61
+def check_against_pallas_ring(K, W, h, S=61):
+    """count_mask vs the masked ring kernel at one grid step, on S rows;
+    K > 255 on rows dense enough that counts pass 255 (_dense_case)."""
+    rng = np.random.default_rng(K * 1000 + W + h + (S if S != 61 else 0))
     B = max(1, 128 // (W // 8))  # one grid step of the ring kernel
-    bits, loc, tmin, sizes_pos, cthr = _case(rng, S, W, B, K, h)
+    make = _dense_case if K > 255 else _case
+    bits, loc, tmin, sizes_pos, cthr = make(rng, S, W, B, K, h)
+    if S != 61 and B == 1:
+        cthr[0] = 1  # the per-target floors decide, so both outcomes occur
     perm = perm_t_of_p(W)
     fn = make_pallas_count(K, W, interpret=True, masked=True, num_hashes=h)
     counts_bm, mask_p = fn(
@@ -112,9 +115,15 @@ def test_count_mask_narrow_rows_match_unpack_count(h, K):
     """W = 5 (the demo DB's row width) against the XLA tail's gather +
     _unpack_count, the JAX path for rows that narrow; at K = 256 and 300
     on rows dense enough that counts pass 255."""
-    rng = np.random.default_rng(5 + h if K == 130 else K + h)
-    S, W, B = 997, 5, 64
-    make = _case if K == 130 else _dense_case
+    check_against_unpack_count(997, 5, 64, K, h,
+                               5 + h if K == 130 else K + h)
+
+
+def check_against_unpack_count(S, W, B, K, h, seed):
+    """count_mask vs the XLA tail's gather + _unpack_count on S rows of W
+    words; K > 140 on _dense_case's rows."""
+    rng = np.random.default_rng(seed)
+    make = _case if K <= 140 else _dense_case
     bits, loc, tmin, sizes_pos, cthr = make(rng, S, W, B, K, h)
     jb = jnp.asarray(bits)
     rows = None

@@ -39,6 +39,9 @@ def _inputs(seed, S, W, K, B, cmin_val, tmin_val):
 CASES = {
     "W128": (17, 499, 128, 12, 16, 10, 11),
     "W7": (5, 997, 7, 30, 64, 20, 21),
+    # a block of 16,000 rows: past the slice counter's widest tile, in the
+    # range of the JAX package's resident row groups
+    "S16000": (23, 16_000, 128, 12, 16, 10, 11),
 }
 
 

@@ -1,7 +1,9 @@
 """The CUDA kernels on the card against their plain PyTorch versions at
 edge shapes the chip smoke does not reach (odd batch sizes, W = 1 and 33,
-h = 2 and 4, K past 255, scaled max_hash, k = 31; K1''s screen plane; K5'
-on narrow and wide blocks, unsorted pairs, empty and crowded blocks; K6'
+h = 2 and 4, K past 255, scaled max_hash, k = 31; every K2' and K5'
+variant, the slice tile's last row and the next, rows to 2^17; K1''s
+screen plane; K5' on narrow and wide blocks, unsorted pairs, empty and
+crowded blocks; K6'
 at ragged S_pad and T, partial and padding tiles, multiplicity 256,
 sentinel-only reads, FLOOR_NEVER floors, bit 31 and two sweeps; K1''s
 value plane at single-end and paired row lengths, every modulus path and
@@ -128,35 +130,52 @@ def _floors_past_255(rng, thr, cthr, K):
 
 
 @pytest.mark.parametrize("W,S,K,h,B,variant", [
-    (13, 997, 37, 1, 300, 1),     # W not a multiple of the 8-word tile
-    (8, 997, 140, 2, 129, 1),     # one tile, a partial 128-read round
-    (4096, 3578, 140, 1, 40, 1),  # the wide main path's rows
-    (64, 500, 300, 3, 130, 1),    # K = 300, h = 3: 9 planes
-    (16, 50, 66000, 1, 2, 1),     # K > 65,535: 32 planes
-    (24, 1000, 45, 4, 1, 1),      # h = 4, B = 1
-    (40, 20000, 140, 2, 70, 0),   # wide rows too many for shared memory
-    (1, 33_554, 140, 1, 1000, 0),  # pass 1's W = 1
-    (5, 99_991, 141, 3, 257, 0),  # narrow rows, K not a multiple of 8
-    (5, 997, 140, 1, 1, 0),       # B = 1
-    (256, 997, 255, 1, 200, 1),   # K = 255: the last of 8 planes
-    (64, 997, 256, 1, 300, 1),    # K = 256: the first of 9 planes
-    (4096, 3578, 300, 1, 300, 1),  # the paired dense tail's rows
-    (16, 997, 300, 2, 129, 1),    # K = 300, h = 2, a partial round
-    (40, 3000, 511, 1, 200, 1),   # K = 511: the last of 9 planes
-    (24, 997, 511, 4, 64, 1),     # K = 511, h = 4
-    (64, 500, 512, 1, 70, 1),     # K = 512: 16 planes
-    (1, 33_554, 300, 1, 1000, 0),  # paired pass 1's W = 1
-    (5, 99_991, 300, 3, 257, 0),  # narrow rows, K = 300
+    (13, 997, 37, 1, 300, "slice"),     # W not a multiple of the 8-word tile
+    (8, 997, 140, 2, 129, "slice"),     # one tile, a partial 128-read round
+    (4096, 3578, 140, 1, 40, "slice"),  # the wide main path's rows
+    (64, 500, 300, 3, 130, "slice"),    # K = 300, h = 3: 9 planes
+    (16, 50, 66000, 1, 2, "slice"),     # K > 65,535: 32 planes
+    (24, 1000, 45, 4, 1, "slice"),      # h = 4, B = 1
+    (40, 20000, 140, 2, 70, "ring"),    # wide rows too many for a tile, h = 2
+    (1, 33_554, 140, 1, 1000, "gather"),  # pass 1's W = 1
+    (5, 99_991, 141, 3, 257, "gather"),  # narrow rows, K not a multiple of 8
+    (5, 997, 140, 1, 1, "gather"),      # B = 1
+    (256, 997, 255, 1, 200, "slice"),   # K = 255: the last of 8 planes
+    (64, 997, 256, 1, 300, "slice"),    # K = 256: the first of 9 planes
+    (4096, 3578, 300, 1, 300, "slice"),  # the paired dense tail's rows
+    (16, 997, 300, 2, 129, "slice"),    # K = 300, h = 2, a partial round
+    (40, 3000, 511, 1, 200, "slice"),   # K = 511: the last of 9 planes
+    (24, 997, 511, 4, 64, "slice"),     # K = 511, h = 4
+    (64, 500, 512, 1, 70, "slice"),     # K = 512: 16 planes
+    (1, 33_554, 300, 1, 1000, "gather"),  # paired pass 1's W = 1
+    (5, 99_991, 300, 3, 257, "gather"),  # narrow rows, K = 300
+    # past the former switch (4,053 rows and the sentinel at h = 1), the
+    # tile's last row and the next (5,077 at h = 1 and 2, 4,053 at h = 3),
+    # and rows to 2^17 on the ring
+    (128, 4053, 140, 1, 300, "slice"), (128, 4054, 140, 1, 300, "slice"),
+    (128, 5077, 140, 1, 300, "slice"), (128, 5078, 140, 1, 300, "ring"),
+    (13, 5077, 300, 2, 129, "slice"), (13, 5078, 300, 2, 129, "ring"),
+    (128, 4053, 511, 3, 130, "slice"), (128, 4054, 511, 3, 130, "ring"),
+    (8, 16_000, 140, 1, 1000, "ring"),   # one tile's width, 16 reads a round
+    (4096, 16_000, 140, 1, 64, "ring"),  # the TPU's row-group range
+    (4096, 16_000, 300, 2, 40, "ring"),
+    (4096, 1 << 17, 140, 1, 40, "ring"),  # tall rows, 512-word spans
+    (128, 1 << 17, 300, 1, 600, "ring"),  # one span a row, 4 reads a round
+    (1024, 1 << 17, 140, 3, 64, "ring"),  # a multi-hash wide DB
+    (8, 1 << 17, 300, 3, 300, "ring"),
+    (13, 1 << 17, 511, 4, 129, "ring"),  # 4-byte copies, h = 4
+    (40, 20000, 600, 1, 70, "ring"),    # K = 600: 16 planes in the ring
 ])
 def test_count_mask_variants_match_plain(cuda, W, S, K, h, B, variant):
-    """Both K2' variants (1: shared-memory slice, 0: gather) against the
-    plain version, on words with bit 31 set, one read whose every window
-    is on the sentinel row and one whose windows hit an all-ones row; for
-    K from 255 to 512 on rows dense enough that most counts pass 255, with
-    floors past 255."""
-    from kmcp_tpu_torch.kernels._build import get_lib
+    """Every K2' variant (geometry.cuh: the gather, the slice, the row
+    ring) against the plain version, on words
+    with bit 31 set, one read whose every window is on the sentinel row and
+    one whose windows hit an all-ones row; for K from 255 to 512 on rows
+    dense enough that most counts pass 255, with floors past 255; the
+    launch counted under its variant."""
+    from kmcp_tpu_torch.search.count import count_mask_variant
 
-    assert get_lib().kmcp_count_mask_variant(W, S + 1, h) == variant
+    assert count_mask_variant(W, S + 1, h) == variant
     rng = np.random.default_rng(W * 31 + K + h)
     bits = rng.integers(0, 2**32, (S + 1, W), dtype=np.uint32)
     _near_255(rng, bits, K, h)
@@ -173,9 +192,11 @@ def test_count_mask_variants_match_plain(cuda, W, S, K, h, B, variant):
     _floors_past_255(rng, thr, cthr, K)
     args = [torch.from_numpy(a).to(cuda) for a in
             (bits.view(np.int32), loc, cthr, thr)]
+    n0 = count_mask.by_variant[variant]
     counts, mask = count_mask(*args)
     counts_p, mask_p = count_mask_plain(*args)
     torch.cuda.synchronize()
+    assert count_mask.by_variant[variant] == n0 + 1
     assert torch.equal(counts, counts_p) and torch.equal(mask, mask_p)
     assert not counts[0].any()
     if B > 1:
@@ -253,21 +274,36 @@ def test_pair_count_kernel_matches_plain(cuda, nb, s_block, W, B, K, P):
     assert int(counts.max()) > 0
 
 
-@pytest.mark.parametrize("nb,s_block,W,B,K,P,empty", [
-    (4, 3578, 128, 600, 140, 3000, 2),  # the main path's blocks, > 1 CTA each
-    (3, 500, 8, 300, 300, 700, None),   # one tile, K = 300: 9 planes
-    (6, 997, 13, 200, 141, 50, 0),      # W not a multiple of 8, few pairs
-    (4, 3578, 128, 600, 300, 3000, 1),  # the paired screened tail's blocks
-    (2, 997, 16, 100, 511, 300, None),  # K = 511: the last of 9 planes
+@pytest.mark.parametrize("nb,s_block,W,B,K,P,empty,variant", [
+    # the main path's blocks, > 1 CTA each
+    (4, 3578, 128, 600, 140, 3000, 2, "slice"),
+    (3, 500, 8, 300, 300, 700, None, "slice"),  # one tile, K = 300: 9 planes
+    (6, 997, 13, 200, 141, 50, 0, "slice"),  # W not a multiple of 8, few pairs
+    # the paired screened tail's blocks
+    (4, 3578, 128, 600, 300, 3000, 1, "slice"),
+    (2, 997, 16, 100, 511, 300, None, "slice"),  # K = 511: the last of 9 planes
+    # past the former switch, the tile's last row and the next, tall blocks
+    (3, 4053, 128, 300, 140, 900, None, "slice"),
+    (3, 4054, 128, 300, 140, 900, 2, "slice"),
+    (2, 5077, 128, 300, 300, 900, None, "slice"),
+    (2, 5078, 128, 300, 300, 900, None, "ring"),
+    (3, 16_000, 128, 600, 140, 3000, 1, "ring"),  # the TPU's K5 slab range
+    (2, 16_000, 13, 200, 511, 400, None, "ring"),
+    (2, 33_524, 8, 300, 300, 700, None, "ring"),
+    (4, 1 << 17, 128, 600, 140, 3000, 3, "ring"),
+    (3, 1 << 17, 128, 600, 300, 3000, None, "ring"),
+    (3, 1 << 17, 13, 200, 511, 500, 0, "ring"),  # 4-byte copies
+    (2, 1 << 17, 40, 100, 600, 200, None, "ring"),  # K = 600: 16 planes
 ])
-def test_pair_count_slice_matches_plain(cuda, nb, s_block, W, B, K, P, empty):
-    """K5''s block-stationary slice variant on unsorted pairs, a block with
-    no pairs (``empty``), blocks with more pairs than one CTA's round, words
-    with bit 31 set, a read of sentinel windows only and one whose windows
-    all hit an all-ones row."""
-    from kmcp_tpu_torch.kernels._build import get_lib
+def test_pair_count_slice_matches_plain(cuda, nb, s_block, W, B, K, P, empty,
+                                        variant):
+    """K5''s block-stationary variants (the slice, the row ring) on
+    unsorted pairs, a block with no pairs (``empty``), blocks
+    with more pairs than one CTA's round, words with bit 31 set, a read of
+    sentinel windows only and one whose windows all hit an all-ones row."""
+    from kmcp_tpu_torch.search.pair_count import pair_count_variant
 
-    assert get_lib().kmcp_pair_count_variant(W, s_block) == 1
+    assert pair_count_variant(W, s_block) == variant
     rng = np.random.default_rng(nb * 100 + W + (K if K > 255 else 0))
     bits = _blocks(rng, nb, s_block, W).view(np.uint32)
     _near_255(rng, bits, K, 1)
@@ -289,14 +325,14 @@ def test_pair_count_slice_matches_plain(cuda, nb, s_block, W, B, K, P, empty):
     _floors_past_255(rng, thr, cthr, K)
     arrays = (bits.view(np.int32), loc, pb, pg, cthr, thr)
     args = [torch.from_numpy(a).to(cuda) for a in arrays]
-    n0 = pair_count.launches
+    n0 = pair_count.by_variant[variant]
     counts, mask = pair_count(*args)
     counts_p, mask_p = pair_count_plain(*args)
     torch.cuda.synchronize()
-    assert pair_count.launches == n0 + 1
+    assert pair_count.by_variant[variant] == n0 + 1
     assert torch.equal(counts, counts_p) and torch.equal(mask, mask_p)
     assert not counts[0].any() and (counts[1] == K).all()
-    if K > 255:
+    if 255 < K <= 512:  # _near_255's rows
         assert float((counts[2:] > 255).float().mean()) > 0.5
 
 
@@ -619,12 +655,14 @@ def test_sharded_dryrun_on_card(cuda, n_ranks, backend):
     assert [ln.split(":")[0] for ln in lines] == [f"mesh(d=1,t={n_ranks})"]
 
 
-@pytest.mark.parametrize("W,s_block", [(128, 3578), (1, 101)])
+@pytest.mark.parametrize("W,s_block", [(128, 3578), (1, 101), (128, 16_000),
+                                       (128, 1 << 17)])
 def test_padding_pairs_match_plain(cuda, W, s_block):
     """A pair list padded as ``screen.pair_list`` leaves it (pb = B - 1,
-    pg = nb): K5' (slice variant at W = 128, gather at W = 1) and K6' give
-    padding rows a zero mask and the real rows the plain versions' counts
-    and mask, and the unpadded launch's."""
+    pg = nb): K5' (the slice at W = 128 and 3,578 rows, the row ring at
+    16,000 and 2^17, the gather at W = 1) and K6' give padding rows a zero
+    mask and the real rows the plain versions' counts and mask, and the
+    unpadded launch's."""
     from kmcp_tpu_torch.search.group_count import s_pad_for
 
     rng = np.random.default_rng(W)
