@@ -1,0 +1,9 @@
+"""The device: the share of the traced window in which no kernel, copy or
+memset ran on the card, from the torch.profiler trace."""
+
+
+def read(record):
+    tr = record.trace
+    if tr is None or tr.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - tr.busy_s / tr.window_s)
