@@ -30,6 +30,7 @@ from ..search.engine import SearchEngine, SearchOptions
 from ..search.stream import TorchStreamSearcher, usable
 from ..search.tsv import HEADER, write_results, write_stats
 from ..seqio.fastx import read_fastx, xopen
+from ..utils import trace
 
 
 def _file_query_id(path: str) -> str:
@@ -131,6 +132,33 @@ def _engine_progress(done: int, t0: float) -> None:
           "million queries per minute", end="", file=sys.stderr)
 
 
+def _launches() -> dict:
+    """Each kernel wrapper's launches so far."""
+    from ..parallel.dryrun import kernel_wrappers
+
+    return {n: k.launches for n, k in kernel_wrappers().items()}
+
+
+STAGES = ("pull", "pack", "dispatch", "wait", "retry", "slow", "order",
+          "emit")
+
+
+def _trace_line(summary: dict, total: int, wall_s: float) -> str:
+    """The closing line of a traced search: the streamer's stages in
+    microseconds a query, the collector's share of the wall and the bytes
+    each way a query."""
+    spans, c = summary["spans"], summary["counters"]
+    q = max(total, 1)
+    us = " ".join(
+        f"{st} {spans.get('stream.' + st, {}).get('total_s', 0) * 1e6 / q:.3f}"
+        for st in STAGES)
+    gc_s = spans.get("gc", {}).get("total_s", 0.0)
+    return (f"[search] trace: us/query {us}; gc "
+            f"{100 * gc_s / max(wall_s, 1e-9):.2f}% of {wall_s:.3f} s wall; "
+            f"h2d {c['h2d_bytes'] / q:.1f} B/query, d2h "
+            f"{c['d2h_bytes'] / q:.1f} B/query")
+
+
 def run_search(
     db_dir: str,
     files: list[str] | None = None,
@@ -164,7 +192,13 @@ def run_search(
     and ``n_blocks``, the pass-2 kernel that ran (``pass2``, None for one
     block and on the host), the union screen's ``union_rows`` and the
     active (read, block) ``pairs`` of pass 2 (0 where there is none), read
-    once the run is over."""
+    once the run is over.  While tracing is on (``trace.enable()``, or
+    ``KMCP_TPU_TRACE=1``, which traces this search alone) ``stats`` also
+    receives ``trace``: ``trace.summary()`` with the streamer's retries and
+    slow rows and the kernels' launches in the run beside its counters;
+    with ``verbose`` a closing ``[search] trace:`` line gives the stages'
+    microseconds a query, the collector's share of the wall and the bytes
+    each way a query."""
     paired = bool(read1 and read2)
     # the query-FPR cache's size follows the mode (fpr.py)
     opt = dataclasses.replace(opt or SearchOptions(), paired_fpr_buf=paired)
@@ -198,6 +232,10 @@ def run_search(
             f"keep-unmatched: {opt.keep_unmatched}, try-se: {opt.try_se}",
             file=sys.stderr,
         )
+    own_trace = trace.env_on() and not trace.TRACER.on
+    if own_trace:
+        trace.enable()
+    launches0 = _launches() if trace.TRACER.on else {}
     t0 = time.time()
     streamer = (TorchStreamSearcher(engine, dev, pass2, in_flight)
                 if route == "stream" else None)
@@ -231,6 +269,23 @@ def run_search(
     finally:
         if out is not sys.stdout:
             out.close()
+        if own_trace:
+            trace.disable()
+    if trace.TRACER.on or own_trace:
+        summary = trace.summary()
+        summary["counters"]["launches"] = {
+            n: c - launches0.get(n, 0) for n, c in _launches().items()}
+        if streamer is not None:
+            ddb = streamer.dev
+            summary["counters"].update(
+                retries=streamer.retries, slow_rows=streamer.slow_rows,
+                pairs=(int(ddb.tail_stats["pairs"])
+                       if not streamer.host and ddb.screen else 0))
+        if verbose:
+            print(_trace_line(summary, total, time.time() - t0),
+                  file=sys.stderr)
+        if stats is not None:
+            stats["trace"] = summary
     if stats is not None:
         stats.update(route=route, backend=opt.backend)
         if streamer is not None:

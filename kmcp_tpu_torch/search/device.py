@@ -49,6 +49,7 @@ import torch
 
 from ..index.format import read_block_union, read_block_union_header
 from ..kmer import native
+from ..utils import trace
 from .device_step import (
     TailResult,
     batch_slice,
@@ -98,6 +99,8 @@ def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     from pinned memory without blocking: a copy from pageable memory waits
     for every batch already on the stream."""
     t = torch.from_numpy(np.ascontiguousarray(a))
+    if trace.TRACER.on:
+        trace.count("h2d_bytes", trace.nbytes(t))
     if device.type != "cuda":
         return t.to(device)
     return t.pin_memory().to(device, non_blocking=True)
@@ -123,16 +126,21 @@ class SearchHandle:
 def _copy_async(res: TailResult) -> SearchHandle:
     """Start the device-to-host copies of a dispatched step's result into
     pinned memory on the current stream and record an event after them
-    (kmcp_tpu/search/stream.py:50-62); CPU tensors are the result."""
-    if res.meta.device.type != "cuda":
-        return SearchHandle(res)
-    host = []
-    for t in (res.meta, res.aux, res.ranges):
-        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        h.copy_(t, non_blocking=True)
-        host.append(h)
-    event = torch.cuda.Event()
-    event.record(torch.cuda.current_stream(res.meta.device))
+    (kmcp_tpu/search/stream.py:50-62); CPU tensors are the result.  The
+    tracer's ``d2h_bytes`` counts the three tensors' sizes either way."""
+    with trace.span("d2h.result"):
+        parts = (res.meta, res.aux, res.ranges)
+        if trace.TRACER.on:
+            trace.count("d2h_bytes", trace.nbytes(*parts))
+        if res.meta.device.type != "cuda":
+            return SearchHandle(res)
+        host = []
+        for t in parts:
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            h.copy_(t, non_blocking=True)
+            host.append(h)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(res.meta.device))
     return SearchHandle(TailResult(*host, res.n_rows), event)
 
 
@@ -572,10 +580,11 @@ class TorchDeviceDB:
             return _copy_async(self._search_reads_sharded(
                 reads, lens_t, cmin, K, cand_budget, dedup_values))
         if self.screen is not None:
-            outs = hash_loc(
-                reads, self.k, self.s_block, self.max_hash, 1,
-                screen_sigs=self.screen["num_bits"], values=dedup_values,
-            )
+            with trace.span("k1.hash_loc"):
+                outs = hash_loc(
+                    reads, self.k, self.s_block, self.max_hash, 1,
+                    screen_sigs=self.screen["num_bits"], values=dedup_values,
+                )
             return _copy_async(screened_tail_async(
                 self.bits_ext, self.screen["u_ext"], outs[0][:, :, 0],
                 outs[2], outs[1], lens_t, cmin, self.theta_for(K), self.thr,
@@ -588,8 +597,10 @@ class TorchDeviceDB:
         if self.sketch is not None:
             loc, nk = self._sketch_locations(reads, lens_t)
         else:
-            outs = hash_loc(reads, self.k, self.total_rows, self.max_hash,
-                            self.num_hashes, values=dedup_values)
+            with trace.span("k1.hash_loc"):
+                outs = hash_loc(reads, self.k, self.total_rows,
+                                self.max_hash, self.num_hashes,
+                                values=dedup_values)
             loc, nk = outs[0], outs[1]
         return _copy_async(count_tail_async(
             self.bits_ext, loc, nk, lens_t, cmin, self.thr[0],
@@ -648,6 +659,8 @@ class TorchDeviceDB:
             if self.mesh is not None:
                 d_size, _t, d_index, _ti = mesh_place(self.mesh)
                 t = batch_slice(t, d_size, d_index, fill)
+            if trace.TRACER.on and not isinstance(a, torch.Tensor):
+                trace.count("h2d_bytes", trace.nbytes(t))
             if t.device.type == "cpu" and self.device.type == "cuda":
                 t = t.pin_memory().to(self.device, non_blocking=True)
             out.append(t)
@@ -709,11 +722,12 @@ class TorchDeviceDB:
         K1' at k unscaled with values, for a syncmer DB K1' again at k = s
         (one row, values), the window selection, then the scale filter."""
         kind, param = self.sketch
-        loc, _nk, vals = hash_loc(reads, self.k, self.total_rows, _U64,
-                                  self.num_hashes, values=True)
-        s_vals = None
-        if kind == "syncmer":
-            s_vals = hash_loc(reads, param, 1, _U64, 1, values=True)[2]
+        with trace.span("k1.hash_loc"):
+            loc, _nk, vals = hash_loc(reads, self.k, self.total_rows, _U64,
+                                      self.num_hashes, values=True)
+            s_vals = None
+            if kind == "syncmer":
+                s_vals = hash_loc(reads, param, 1, _U64, 1, values=True)[2]
         loc, nk, _vals = sketch_transform(kind, self.k, param,
                                           self.total_rows, self.max_hash,
                                           loc, vals, s_vals, lens_t)

@@ -53,6 +53,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..utils import trace
 from .count import check_range, count_mask, defer_rows
 from .dedup import dedup_planes
 
@@ -286,22 +287,28 @@ def count_tail_async(bits_ext: torch.Tensor, loc: torch.Tensor,
     if chunk_reads is None:
         chunk_reads = max(1, COUNTS_BYTES // (4 * T))
     if in_dedup:
-        (loc,), nk = dedup_planes(values, [loc], nk, dedup_threshold,
-                                  bits_ext.shape[0] - 1)
-    cthr = read_floor(nk, lens, cmin, min_len, dedup_threshold, in_dedup)
-    loc, ranges = defer_rows(loc, bits_ext.shape[0])
+        with trace.span("tail.dedup"):
+            (loc,), nk = dedup_planes(values, [loc], nk, dedup_threshold,
+                                      bits_ext.shape[0] - 1)
+    with trace.span("tail.prep"):
+        cthr = read_floor(nk, lens, cmin, min_len, dedup_threshold,
+                          in_dedup)
+        loc, ranges = defer_rows(loc, bits_ext.shape[0])
     parts = []
     for b0 in range(0, B, chunk_reads):
         b1 = min(B, b0 + chunk_reads)
-        counts, mask = count_mask(bits_ext, loc[b0:b1], cthr[b0:b1], thr,
-                                  rows_checked=True)
-        idx, cnt, n = compact_candidates(mask, counts, budget, 0)
-        parts.append((n, idx + b0 * T, cnt))
+        with trace.span("k2.count_mask"):
+            counts, mask = count_mask(bits_ext, loc[b0:b1], cthr[b0:b1],
+                                      thr, rows_checked=True)
+        with trace.span("tail.compact"):
+            idx, cnt, n = compact_candidates(mask, counts, budget, 0)
+            parts.append((n, idx + b0 * T, cnt))
         del counts, mask  # the next chunk may reuse them (~1 GB)
-    n, (ids, cnt), valid = splice(parts, budget)
-    ids = torch.where(valid, ids, min(B * T, 2**31 - 1))
-    meta, aux = pack_result(ids, torch.where(valid, cnt, 0), nk, budget,
-                            B * T, n)
+    with trace.span("tail.compact"):
+        n, (ids, cnt), valid = splice(parts, budget)
+        ids = torch.where(valid, ids, min(B * T, 2**31 - 1))
+        meta, aux = pack_result(ids, torch.where(valid, cnt, 0), nk, budget,
+                                B * T, n)
     return TailResult(meta, aux, ranges, (bits_ext.shape[0],))
 
 

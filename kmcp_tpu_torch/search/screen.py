@@ -37,6 +37,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import trace
 from .count import check_rows, count_mask, defer_rows
 from .dedup import dedup_planes
 from .device_step import (
@@ -192,17 +193,23 @@ def screened_tail_async(bits_ext: torch.Tensor, u_ext: torch.Tensor,
     B = loc.shape[0]
     s_block = (bits_ext.shape[0] - 1) // n_blocks
     if in_dedup:
-        (loc, loc_u), nk = dedup_planes(values, [loc, loc_u], nk,
-                                        dedup_threshold,
-                                        (s_block, u_ext.shape[0] - 1))
-    loc, r_loc = defer_rows(loc, s_block + 1)
-    loc_u, r_u = defer_rows(loc_u, u_ext.shape[0])
+        with trace.span("tail.dedup"):
+            (loc, loc_u), nk = dedup_planes(values, [loc, loc_u], nk,
+                                            dedup_threshold,
+                                            (s_block, u_ext.shape[0] - 1))
+    with trace.span("tail.prep"):
+        loc, r_loc = defer_rows(loc, s_block + 1)
+        loc_u, r_u = defer_rows(loc_u, u_ext.shape[0])
     if pair_budget is None:
         pair_budget = pair_budget_for(B, n_blocks, budget, pass2)
-    pb, pg, n_pairs = pair_list(
-        active_mask(u_ext, loc_u, nk, lens, theta, n_blocks, min_len,
-                    dedup_threshold, in_dedup), pair_budget)
-    cthr = read_floor(nk, lens, cmin, min_len, dedup_threshold, in_dedup)
+    with trace.span("tail.pass1"):
+        active = active_mask(u_ext, loc_u, nk, lens, theta, n_blocks,
+                             min_len, dedup_threshold, in_dedup)
+    with trace.span("tail.pair_list"):
+        pb, pg, n_pairs = pair_list(active, pair_budget)
+    with trace.span("tail.prep"):
+        cthr = read_floor(nk, lens, cmin, min_len, dedup_threshold,
+                          in_dedup)
     if stats is not None:
         stats["pairs"] = stats.get("pairs", 0) + n_pairs
     if chunk_pairs is None:
@@ -210,12 +217,13 @@ def screened_tail_async(bits_ext: torch.Tensor, u_ext: torch.Tensor,
     n, (q, t, cnt), valid = pass2_fixed(pass2, bits_ext, bits01, loc, pb, pg,
                                         cthr, thr, s_block, budget,
                                         chunk_pairs)
-    total = torch.where(n_pairs > pair_budget, budget + 1, n)
-    meta, aux = pack_result_split(
-        torch.where(valid, q, B), torch.where(valid, t, 0),
-        torch.where(valid, cnt, 0), nk, budget, total)
-    return TailResult(meta, aux, torch.cat([r_loc, r_u]),
-                      (s_block + 1, u_ext.shape[0]))
+    with trace.span("tail.compact"):
+        total = torch.where(n_pairs > pair_budget, budget + 1, n)
+        meta, aux = pack_result_split(
+            torch.where(valid, q, B), torch.where(valid, t, 0),
+            torch.where(valid, cnt, 0), nk, budget, total)
+        ranges = torch.cat([r_loc, r_u])
+    return TailResult(meta, aux, ranges, (s_block + 1, u_ext.shape[0]))
 
 
 def pass2_fixed(pass2, bits_ext, bits01, loc, pb, pg, cthr, thr, s_block,
@@ -229,17 +237,21 @@ def pass2_fixed(pass2, bits_ext, bits01, loc, pb, pg, cthr, thr, s_block,
     for p0 in range(0, pb.shape[0], chunk):
         b, g = pb[p0 : p0 + chunk], pg[p0 : p0 + chunk]
         if pass2 == "pair":
-            counts, mask = pair_count(bits_ext, loc, b, g, cthr, thr,
-                                      rows_checked=True)
+            with trace.span("k5.pair_count"):
+                counts, mask = pair_count(bits_ext, loc, b, g, cthr, thr,
+                                          rows_checked=True)
         else:
-            counts, mask = group_count(bits01, loc, b, g, cthr, thr, s_block,
-                                       rows_checked=True)
-        idx, n = compact_mask(mask, budget, 0)
-        p = idx // T_b  # padding lanes read pair 0: spliced away
-        parts.append((n, b[p], g[p].long() * T_b + idx % T_b,
-                      counts.reshape(-1)[idx]))
+            with trace.span("k6.group_count"):
+                counts, mask = group_count(bits01, loc, b, g, cthr, thr,
+                                           s_block, rows_checked=True)
+        with trace.span("tail.compact"):
+            idx, n = compact_mask(mask, budget, 0)
+            p = idx // T_b  # padding lanes read pair 0: spliced away
+            parts.append((n, b[p], g[p].long() * T_b + idx % T_b,
+                          counts.reshape(-1)[idx]))
         del counts, mask  # the next chunk may reuse them (~1 GB)
-    return splice(parts, budget)
+    with trace.span("tail.compact"):
+        return splice(parts, budget)
 
 
 def screened_tail(*args, **kwargs) -> tuple[np.ndarray, np.ndarray]:

@@ -56,6 +56,7 @@ import numpy as np
 import torch
 
 from ..kmer import native
+from ..utils import trace
 from .device import HostDB, TorchDeviceDB, screen_off, two_pass_ready
 from .engine import QueryResult, SearchEngine
 from .tsv import write_results
@@ -132,6 +133,18 @@ def _fmt_ratio_memo():
         return s
 
     return fmt
+
+
+class _CountedOut:
+    """A TSV sink whose writes add their lines to the tracer's
+    ``tsv_rows``."""
+
+    def __init__(self, out):
+        self.out = out
+
+    def write(self, s: str):
+        trace.count("tsv_rows", s.count("\n"))
+        return self.out.write(s)
 
 
 NOT_STREAMED = ("the streamer does not take this search (stream.usable); "
@@ -250,15 +263,16 @@ class TorchStreamSearcher:
         def drain():
             nonlocal total, matched
             state = pending.popleft()
-            matched += self._drain(state, out, fmt)
             total += state["real_b"]
+            matched += self._drain(state, out, fmt)
             if progress is not None:
                 progress(total)
 
         idx0 = start_idx
         it = iter(queries)
         while True:
-            batch = list(islice(it, batch_size))
+            with trace.span("stream.pull", idx0):
+                batch = list(islice(it, batch_size))
             if not batch:
                 break
             pending.append(self._flush(batch, batch_size, idx0, paired))
@@ -280,6 +294,22 @@ class TorchStreamSearcher:
         (the host's k-mer counts, or None when they come with the result)
         and ``dedup`` (whether rows over the threshold were uniqued, or
         are slow rows)."""
+        with trace.span("stream.flush", idx0):
+            with trace.span("stream.pack"):
+                state, seqs, lens, lmax = self._join(batch, batch_size, idx0,
+                                                     paired)
+            if self.host:
+                self._flush_host(state, seqs, lmax, batch_size, paired)
+            elif self.host_hash:
+                self._flush_host_hash(state, seqs, lens, lmax)
+            else:
+                self._flush_device(state, seqs, lens, lmax, paired)
+            del seqs  # the joined rows go inside the span
+        return state
+
+    def _join(self, batch, batch_size, idx0, paired):
+        """A batch's rows padded to the batch size, their lengths and
+        ``lmax``, and the state ``_flush`` starts from."""
         B = len(batch)
         if paired:
             seqs = [q[1] + b"N" + q[2] if q[2] else q[1] for q in batch]
@@ -298,13 +328,7 @@ class TorchStreamSearcher:
         lmax = max(-(-int(lens.max()) // 32) * 32, self.k + 31)
         state = {"batch": batch, "real_b": B, "idx0": idx0, "qlen": qlen,
                  "eff": eff, "counts": None}
-        if self.host:
-            self._flush_host(state, seqs, lmax, batch_size, paired)
-        elif self.host_hash:
-            self._flush_host_hash(state, seqs, lens, lmax)
-        else:
-            self._flush_device(state, seqs, lens, lmax, paired)
-        return state
+        return state, seqs, lens, lmax
 
     def _flush_device(self, state, seqs, lens, lmax, paired):
         """The rows go up from a pinned buffer without blocking, K1' and
@@ -314,16 +338,20 @@ class TorchStreamSearcher:
         copy and for a retry."""
         dev = self.dev
         B = len(seqs)
-        host = torch.empty((B, lmax), dtype=torch.uint8,
-                           pin_memory=dev.device.type == "cuda")
-        _pack_reads_matrix(seqs, lens, lmax, host.numpy())
-        reads = host.to(dev.device, non_blocking=True)
-        eff = state["eff"]
-        budget = max(1, int(SLOTS_PER_READ * B))
-        state.update(
-            budget=budget, dedup=paired, host_reads=host, reads=reads,
-            pending=dev.search_reads_async(reads, eff, budget, paired),
-            rerun=lambda b: dev.search_reads(reads, eff, b, paired))
+        with trace.span("stream.pack"):
+            host = torch.empty((B, lmax), dtype=torch.uint8,
+                               pin_memory=dev.device.type == "cuda")
+            _pack_reads_matrix(seqs, lens, lmax, host.numpy())
+        with trace.span("stream.dispatch"):
+            if trace.TRACER.on:
+                trace.count("h2d_bytes", trace.nbytes(host))
+            reads = host.to(dev.device, non_blocking=True)
+            eff = state["eff"]
+            budget = max(1, int(SLOTS_PER_READ * B))
+            state.update(
+                budget=budget, dedup=paired, host_reads=host, reads=reads,
+                pending=dev.search_reads_async(reads, eff, budget, paired),
+                rerun=lambda b: dev.search_reads(reads, eff, b, paired))
 
     def _flush_host_hash(self, state, seqs, lens, lmax):
         """A15: the C++ hashes the batch to Bloom locations straight into
@@ -334,21 +362,25 @@ class TorchStreamSearcher:
         dev, opt, info = self.dev, self.opt, self.db.info
         B = len(seqs)
         kmax = lmax - self.k + 1
-        host = torch.empty((B, kmax, info.num_hashes), dtype=torch.int32,
-                           pin_memory=dev.device.type == "cuda")
-        _loc, counts = native.hash_reads_loc(
-            seqs, self.k, kmax, dev.total_rows, info.num_hashes,
-            canonical=info.canonical, max_hash=self.db.max_hash,
-            out=host.numpy())
-        too_short = lens < opt.min_query_len
-        n_dev = np.where(too_short | (counts > opt.kmer_dedup_threshold), 0,
-                         counts)
-        loc = host.to(dev.device, non_blocking=True)
-        budget = max(1, int(SLOTS_PER_READ * B))
-        state.update(
-            budget=budget, dedup=False, counts=counts, host_loc=host,
-            pending=dev.search_async(loc, n_dev, budget),
-            rerun=lambda b: dev.search_async(loc, n_dev, b).result())
+        with trace.span("stream.pack"):
+            host = torch.empty((B, kmax, info.num_hashes), dtype=torch.int32,
+                               pin_memory=dev.device.type == "cuda")
+            _loc, counts = native.hash_reads_loc(
+                seqs, self.k, kmax, dev.total_rows, info.num_hashes,
+                canonical=info.canonical, max_hash=self.db.max_hash,
+                out=host.numpy())
+            too_short = lens < opt.min_query_len
+            n_dev = np.where(too_short | (counts > opt.kmer_dedup_threshold),
+                             0, counts)
+        with trace.span("stream.dispatch"):
+            if trace.TRACER.on:
+                trace.count("h2d_bytes", trace.nbytes(host))
+            loc = host.to(dev.device, non_blocking=True)
+            budget = max(1, int(SLOTS_PER_READ * B))
+            state.update(
+                budget=budget, dedup=False, counts=counts, host_loc=host,
+                pending=dev.search_async(loc, n_dev, budget),
+                rerun=lambda b: dev.search_async(loc, n_dev, b).result())
 
     def _flush_host(self, state, seqs, lmax, batch_size, paired):
         """The host backend: ``HostDB.search_reads`` on the worker thread.
@@ -357,90 +389,112 @@ class TorchStreamSearcher:
         407-432); other rows over the threshold are uniqued in the hash
         kernel."""
         batch = state["batch"]
-        if paired and self.db.is_sketch:
-            mates = []
-            for q in batch:
-                mates += [q[1], q[2] or b""]
-            mates += [b""] * (2 * (batch_size - len(batch)))
-            kw = {"dedup_threshold": 0, "mates": mates}
-        else:
-            kw = {"dedup_threshold": self.opt.kmer_dedup_threshold}
+        with trace.span("stream.pack"):
+            if paired and self.db.is_sketch:
+                mates = []
+                for q in batch:
+                    mates += [q[1], q[2] or b""]
+                mates += [b""] * (2 * (batch_size - len(batch)))
+                kw = {"dedup_threshold": 0, "mates": mates}
+            else:
+                kw = {"dedup_threshold": self.opt.kmer_dedup_threshold}
         eff = state["eff"]
         search = self.dev.search_reads
         budget = max(1, int(HOST_SLOTS_PER_READ * batch_size))
-        state.update(
-            budget=budget, dedup=bool(kw["dedup_threshold"]),
-            pending=_host_pool().submit(search, seqs, eff, lmax, budget,
-                                        **kw),
-            rerun=lambda b: _host_pool().submit(search, seqs, eff, lmax, b,
-                                                **kw).result())
+        with trace.span("stream.dispatch"):
+            state.update(
+                budget=budget, dedup=bool(kw["dedup_threshold"]),
+                pending=_host_pool().submit(search, seqs, eff, lmax, budget,
+                                            **kw),
+                rerun=lambda b: _host_pool().submit(search, seqs, eff, lmax,
+                                                    b, **kw).result())
 
     def _drain(self, state, out, fmt) -> int:
         """Wait for a batch's result, retry it on a candidate overflow,
         search its slow rows on the object engine, order and write its rows
-        (``drain``, stream.py:502-611); returns its matched reads."""
+        (``drain``, stream.py:502-611); returns its matched reads.  The
+        state is cleared once the rows are written, so that the batch's
+        reads and buffers are released inside the drain's span."""
+        with trace.span("stream.drain", state["idx0"]):
+            if trace.TRACER.on:
+                out = _CountedOut(out)
+            matched = self._drain_batch(state, out, fmt)
+            trace.count("batches", 1)
+            trace.count("queries", state["real_b"])
+            state.clear()
+        return matched
+
+    def _drain_batch(self, state, out, fmt) -> int:
         opt = self.opt
         dev = self.dev
         batch, B, idx0 = state["batch"], state["real_b"], state["idx0"]
         budget = state["budget"]
         nb = state["eff"].shape[0]
         T = dev.t_per_block * dev.n_blocks
-        n_cand, qi, t, cnt, nk = _unpack_result(
-            state["pending"].result(), budget, nb, T)
+        with trace.span("stream.wait"):
+            res = state["pending"].result()
+        with trace.span("stream.order"):
+            n_cand, qi, t, cnt, nk = _unpack_result(res, budget, nb, T)
         while qi is None:  # candidate overflow: re-run with 4x the budget
-            budget *= 4
-            self.retries += 1
-            n_cand, qi, t, cnt, nk = _unpack_result(
-                state["rerun"](budget), budget, nb, T)
+            with trace.span("stream.retry"):
+                budget *= 4
+                self.retries += 1
+                n_cand, qi, t, cnt, nk = _unpack_result(
+                    state["rerun"](budget), budget, nb, T)
 
-        counts = (nk if state["counts"] is None else state["counts"])[:B]
-        rows_of = {  # what the writers read of the batch
-            "ids": [q[0] for q in batch],
-            "counts": counts,
-            "qlen": state["qlen"],
-            "too_short": state["eff"][:B] < opt.min_query_len,
-        }
-        # rows over the dedup threshold were uniqued, or are slow rows
-        slow_rows = (np.zeros(0, dtype=np.int64) if state["dedup"] else
-                     np.nonzero(counts > opt.kmer_dedup_threshold)[0])
-        if self.multi_k:
-            # unmatched reads retry with the DB's smaller ks
-            has_match = np.zeros(B, dtype=bool)
-            has_match[qi] = True
-            retry = ~has_match & ~rows_of["too_short"] & (
-                counts >= opt.min_kmers
-            )
-            slow_rows = np.union1d(slow_rows, np.nonzero(retry)[0])
-        slow_set = set(slow_rows.tolist())
+        with trace.span("stream.order"):
+            counts = (nk if state["counts"] is None else state["counts"])[:B]
+            rows_of = {  # what the writers read of the batch
+                "ids": [q[0] for q in batch],
+                "counts": counts,
+                "qlen": state["qlen"],
+                "too_short": state["eff"][:B] < opt.min_query_len,
+            }
+            # rows over the dedup threshold were uniqued, or are slow rows
+            slow_rows = (np.zeros(0, dtype=np.int64) if state["dedup"] else
+                         np.nonzero(counts > opt.kmer_dedup_threshold)[0])
+            if self.multi_k:
+                # unmatched reads retry with the DB's smaller ks
+                has_match = np.zeros(B, dtype=bool)
+                has_match[qi] = True
+                retry = ~has_match & ~rows_of["too_short"] & (
+                    counts >= opt.min_kmers
+                )
+                slow_rows = np.union1d(slow_rows, np.nonzero(retry)[0])
+            slow_set = set(slow_rows.tolist())
         slow_results: dict[int, QueryResult] = {}
         if slow_set:
-            rows = sorted(slow_set)
-            res = self.engine.search_batch([batch[r] for r in rows], 0)
-            slow_results = dict(zip(rows, res))
-            keep = ~np.isin(qi, slow_rows)
-            qi, t, cnt = qi[keep], t[keep], cnt[keep]
-            self.slow_rows += len(rows)
+            with trace.span("stream.slow"):
+                rows = sorted(slow_set)
+                res = self.engine.search_batch([batch[r] for r in rows], 0)
+                slow_results = dict(zip(rows, res))
+                self.slow_rows += len(rows)
 
-        # qi asc, qcov desc (cnt desc), tcov desc (size asc), then target:
-        # a total order, whatever order the counters emitted
-        order = np.lexsort((t, dev.sizes[t], -cnt, qi))
-        qi, t, cnt = qi[order], t[order], cnt[order]
-        hits = np.bincount(qi, minlength=B).astype(np.int32)
-        matched = int((hits > 0).sum()) + sum(
-            1 for r in slow_set if slow_results[r].matches
-        )
-        if opt.keep_top_scores <= 0:
-            self._write_native(out, rows_of, qi, t, cnt, hits, slow_set,
-                               slow_results, idx0)
-        else:
-            names = [(opt.name_map or {}).get(n, n) for n in dev.names]
-            self._write_python(
-                out, rows_of, qi, t, cnt, hits, slow_set, slow_results, idx0,
-                *fmt, names,
-                [str(int(ix) & 0xFFFF) for ix in dev.indices],
-                [str(int(ix) >> 16) for ix in dev.indices],
-                [str(int(g)) for g in dev.gsizes], str(self.k),
+        with trace.span("stream.order"):
+            if slow_set:
+                keep = ~np.isin(qi, slow_rows)
+                qi, t, cnt = qi[keep], t[keep], cnt[keep]
+            # qi asc, qcov desc (cnt desc), tcov desc (size asc), then
+            # target: a total order, whatever order the counters emitted
+            order = np.lexsort((t, dev.sizes[t], -cnt, qi))
+            qi, t, cnt = qi[order], t[order], cnt[order]
+            hits = np.bincount(qi, minlength=B).astype(np.int32)
+            matched = int((hits > 0).sum()) + sum(
+                1 for r in slow_set if slow_results[r].matches
             )
+        with trace.span("stream.emit"):
+            if opt.keep_top_scores <= 0:
+                self._write_native(out, rows_of, qi, t, cnt, hits, slow_set,
+                                   slow_results, idx0)
+            else:
+                names = [(opt.name_map or {}).get(n, n) for n in dev.names]
+                self._write_python(
+                    out, rows_of, qi, t, cnt, hits, slow_set, slow_results,
+                    idx0, *fmt, names,
+                    [str(int(ix) & 0xFFFF) for ix in dev.indices],
+                    [str(int(ix) >> 16) for ix in dev.indices],
+                    [str(int(g)) for g in dev.gsizes], str(self.k),
+                )
         return matched
 
     # ---------------------------------------------------------- writers
