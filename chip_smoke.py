@@ -35,7 +35,12 @@ raises, exit non-zero):
      K5' at a real KMCP DB's row count (2^20 rows, GTDB r202's mean chunk
      at ``index -f 0.3``, and 16,000: kmcp_tpu_torch/tools/tall_ab.py's
      shapes, bits made on the card), each with the variant it ran, its
-     bound over the rows its locations touch and the ratio;
+     bound over the rows its locations touch and the ratio; and K7', the
+     dense tail's compaction (``phase_compact``), at the benchmark's batch
+     of 16,384 reads of 80 words within and over a 32,768 budget and with
+     a quarter of its lanes set, and at
+     2,048 reads of 4,096 words, exact against its plain version, with its
+     device time a batch, one call's, the plain version's and its bound;
   4. main path: a 131,072-target single-block wide DB (2,048 synthetic
      genomes x 64 chunks, k=21, one hash, FPR 0.3; the recipe of
      tools/bench_large_t.py) and 65,536 150 bp reads (40 source genomes,
@@ -435,6 +440,69 @@ def phase_kernels(torch, dev) -> dict:
         torch, f"pass1 paired S={N} h=1 W=1", union,
         loc_up.unsqueeze(2).contiguous(), zeros, zeros[:32]))
     return res
+
+
+# K7' cases: (label, reads B, words W, set bits a read, budget): the main
+# path's batch at the benchmark's 80-word rows, within and over the
+# budget, and with a quarter of its lanes set (the whole budget in the
+# first tiles: the emission's worst case), and a 2,048-read chunk of
+# 4,096-word rows (the dense tail's chunk there, compacted as a whole
+# batch)
+COMPACT_CASES = (
+    ("B=16384 W=80", 16_384, 80, 1.5, 32_768),
+    ("B=16384 W=80 over budget", 16_384, 80, 8.0, 32_768),
+    ("B=16384 W=80 dense", 16_384, 80, 640.0, 32_768),
+    ("B=2048 W=4096", 2048, 4096, 1.5, 32_768),
+)
+
+
+def phase_compact(torch, dev) -> list:
+    """Phase 3, K7': the dense tail's compaction (``DenseCompaction``) of a
+    random mask, each bit set with the case's share of a read's lanes,
+    against its plain version (exact), timed as the tail calls it: device
+    ms a batch (CUDA graph), the plain version's ms, and the bound: the
+    mask, nk and the emitted counts read once, meta and aux written once."""
+    from kmcp_tpu_torch.search.device_step import DenseCompaction
+
+    rng = np.random.default_rng(17)
+    rows = []
+    for label, B, W, per_read, budget in COMPACT_CASES:
+        T = 32 * W
+        gen = torch.Generator(device=dev).manual_seed(B + W)
+        ok = torch.rand((B, W, 32), device=dev, generator=gen) < per_read / T
+        shifts = torch.arange(32, device=dev, dtype=torch.int64)
+        words = (ok.long() << shifts).sum(2)
+        mask = torch.where(words >= 2**31, words - 2**32,
+                           words).to(torch.int32)
+        del ok, words
+        counts = torch.randint(0, 70_000, (B, T), dtype=torch.int32,
+                               device=dev, generator=gen)
+        nk = torch.from_numpy(rng.integers(0, 140, B).astype(np.int32)
+                              ).to(dev)
+
+        def run(plain: bool = False):
+            comp = DenseCompaction(nk, B * T, budget)
+            (comp.add_plain if plain else comp.add)(mask, counts)
+            return comp.result()
+
+        got, want = run(), run(plain=True)
+        torch.cuda.synchronize()
+        err = max(max_abs_err(torch, g, w) for g, w in zip(got, want))
+        if err:
+            raise AssertionError(f"compact {label}: max abs err {err}")
+        total = int(want[0][0])
+        ms = graph_ms(torch, run)
+        call = time_ms(torch, run)
+        ms_p = time_ms(torch, lambda: run(plain=True))
+        bd = bound(nbytes(mask, nk, *got) + 4 * min(total, budget))
+        log(f"phase 3 compact [{label}] budget={budget}: exact (max abs err "
+            f"0, {total} candidates); kernel {ms:.4f} ms a batch on the card "
+            f"(CUDA graph), {call:.4f} ms one call, plain {ms_p:.3f} ms, "
+            f"bound {bd[0]:.4f} ms ({bd[1]}), kernel / bound "
+            f"{ms / bd[0]:.1f}")
+        rows.append((label, err, ms, ms_p, bd, call))
+        del mask, counts
+    return rows
 
 
 def time_hash_loc(torch, label, args, outs) -> tuple:
@@ -966,9 +1034,9 @@ def searched(db: str, out: str, **kwargs) -> dict:
 def plain_kernels():
     """Bind the main paths' kernel calls (K1' of every device search, the
     sketch branch's included; K2' in the dense tail, in screened pass 1
-    and in the object engine's counter; K5' and K6' in pass 2) to their
-    plain PyTorch versions, so the same paths run without the CUDA
-    kernels."""
+    and in the object engine's counter; K7' in the dense tail; K5' and K6'
+    in pass 2) to their plain PyTorch versions, so the same paths run
+    without the CUDA kernels."""
     from kmcp_tpu_torch.search import device, device_step, kernel, screen
     from kmcp_tpu_torch.search.count import count_mask_plain
     from kmcp_tpu_torch.search.group_count import group_count_plain
@@ -986,6 +1054,8 @@ def plain_kernels():
 
     binds = [(device, "hash_loc", hash_loc_plain),
              (device_step, "count_mask", count), (screen, "count_mask", count),
+             (device_step.DenseCompaction, "add",
+              device_step.DenseCompaction.add_plain),
              (kernel, "count_mask", count),
              (screen, "pair_count", pair), (screen, "group_count", group)]
     saved = [(obj, name, getattr(obj, name)) for obj, name, _ in binds]
@@ -1038,9 +1108,10 @@ def phase_main_path(torch, dev, label: str, db: str, reads: str,
     if (total, matched) != ref or total != N_READS:
         raise AssertionError(f"{label}: totals {total, matched} vs {ref}")
     check_best_hits(out_dev, n_source)
-    # the dense one-block path runs K1' and K2' (CPU tensors take the plain
-    # versions), and neither pass-2 kernel
-    launched = min(launches["hash_loc"], launches["count_mask"]) > 0
+    # the dense one-block path runs K1', K2' and K7' (CPU tensors take the
+    # plain versions), and neither pass-2 kernel
+    launched = min(launches["hash_loc"], launches["count_mask"],
+                   launches["compact"]) > 0
     if ((dev.type == "cuda" and not launched) or launches["pair_count"]
             or launches["group_count"]):
         raise AssertionError(f"{label}: launches {launches}")
@@ -1105,7 +1176,7 @@ def stage_timers(torch, acc: dict):
                (device, "sketch_transform", "sketch_select"),
                (device, "count_tail_async", "dense_tail"),
                (device_step, "count_mask", "dense_count_kernel"),
-               (device_step, "compact_candidates", "dense_compaction"),
+               (device_step.DenseCompaction, "add", "dense_compaction"),
                (device_step, "dedup_planes", "dedup"),
                (screen, "dedup_planes", "dedup"),
                (screen, "active_mask", "pass1"),
@@ -1202,7 +1273,7 @@ def phase_screened(torch, dev, db: str, index_s: float, reads: str,
         mine = "group_count" if want == "gemm" else "pair_count"
         la = run["launches"]
         launched = min(la["hash_loc"], la["count_mask"], la[mine]) > 0
-        if (dev.type == "cuda" and not launched) or la[other]:
+        if (dev.type == "cuda" and not launched) or la[other] or la["compact"]:
             raise AssertionError(f"{tag}: launches {la}")
     log(f"phase 6 DB: {st['n_blocks']} blocks x {rows_per_block} Bloom rows "
         f"x {st['words']} words ({32 * st['words']} targets a block), union "
@@ -1259,7 +1330,8 @@ def phase_paired(torch, dev, label: str, db: str, r1: str, r2: str,
                              f"{ref['totals']}")
     check_best_hits(run["out"], n_source)
     la, st = run["launches"], run["stats"]
-    want = ["hash_loc", "count_mask"] + (["pair_count"] if screened else [])
+    want = ["hash_loc", "count_mask"] + (["pair_count"] if screened
+                                         else ["compact"])
     if (min(la[n] for n in want) == 0
             or any(la[n] for n in la if n not in want)):
         raise AssertionError(f"{tag}: launches {la}")
@@ -1394,7 +1466,8 @@ def phase_sketch(torch, dev, genome_src: str, pool, reads: str,
         with plain_kernels():
             ref = search("plain")
         tag = f"phase 8 {kind}"
-        check_plain(tag, run, ref, "stream", ("hash_loc", "count_mask"), dev)
+        check_plain(tag, run, ref, "stream",
+                    ("hash_loc", "count_mask", "compact"), dev)
         st, la = run["stats"], run["launches"]
         # K1' once a batch of 16,384 reads (twice for syncmers), and again
         # for every batch the 4x candidate-budget retry re-runs
@@ -1720,7 +1793,7 @@ def phase_tall(torch, dev, index_s: float, reads: str, pair_files) -> dict:
         screened = name == "screened"
         rows_block = st["rows"] // st["n_blocks"]
         want = ["hash_loc", "count_mask"] + (["pair_count"] if screened
-                                             else [])
+                                             else ["compact"])
         ring = ["count_mask/ring"] if not screened else ["pair_count/ring"]
         # pass 1 counts one-word union rows: the gather; nothing else
         # gathers at these widths
@@ -2314,7 +2387,7 @@ def phase_inflight(torch, dev, smi: str, cells: list, wide: tuple,
     from kmcp_tpu_torch.search.engine import SearchEngine, SearchOptions
 
     out = {"launches": {}, "walls": {}}
-    need = {"pair": ["pair_count"], "gemm": ["group_count"]}
+    need = {"pair": ["pair_count"], "gemm": ["group_count"], "": ["compact"]}
     for name, db, query, pass2, ref, unit in cells:
         with open(ref, "rb") as f:
             want = f.read()
@@ -2650,6 +2723,7 @@ def main() -> int:
     t0 = time.time()
     kern = phase_kernels(torch, dev)
     kern.update(phase_pass2(torch, dev))
+    kern["compact"] = phase_compact(torch, dev)
     for name, rows in phase_tall_kernels(torch, dev).items():
         kern[name] += rows
     walls["3 kernels"] = time.time() - t0
@@ -2771,6 +2845,8 @@ def main() -> int:
                        "kmcp_tpu/search/pallas_count.py:658"),
         "group_count": ("kmcp_tpu_torch/csrc/group_count.cu",
                         "kmcp_tpu/search/pallas_count.py:823"),
+        "compact": ("kmcp_tpu_torch/csrc/compact.cu",
+                    "none (XLA: kmcp_tpu/search/device_step.py:97-137)"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():
@@ -2798,7 +2874,7 @@ def main() -> int:
                    "library_ms": r[6] if len(r) > 6 else None}
             if r[0] in VARIANT_OF:
                 out["variant"] = VARIANT_OF[r[0]]
-            if name == "hash_loc":
+            if name in ("hash_loc", "compact"):
                 out["call_ms"] = r[5]
             if len(r) > 7:  # at the screened tail's padded pair budget
                 out["padded"] = r[7]

@@ -151,6 +151,13 @@ def load(so: str) -> ctypes.CDLL:
         vp, vp, vp,
     ]
     lib.kmcp_group_count.restype = i32
+    lib.kmcp_compact.argtypes = [
+        vp, vp, i64, i64, vp, i64, vp, i32, i32, i32, i32, vp, vp, vp, i32,
+        i32, vp,
+    ]
+    lib.kmcp_compact.restype = i32
+    lib.kmcp_compact_tiles.argtypes = [i64]
+    lib.kmcp_compact_tiles.restype = i64
     return lib
 
 

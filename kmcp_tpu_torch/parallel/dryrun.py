@@ -131,14 +131,16 @@ def _rank_main(rank, n_ranks, init, backend, device, timeout_s, work, q):
 # ------------------------------------------------------------- rank work
 
 def kernel_wrappers() -> dict:
-    """The four kernel wrappers by name; each counts its own launches."""
+    """The five kernel wrappers by name; each counts its own launches."""
     from ..search.count import count_mask
+    from ..search.device_step import DenseCompaction
     from ..search.group_count import group_count
     from ..search.hash_loc import hash_loc
     from ..search.pair_count import pair_count
 
     return {"hash_loc": hash_loc, "count_mask": count_mask,
-            "pair_count": pair_count, "group_count": group_count}
+            "pair_count": pair_count, "group_count": group_count,
+            "compact": DenseCompaction}
 
 
 @contextlib.contextmanager

@@ -5,17 +5,22 @@ Port of the single-block count tail kmcp_tpu/search/device_step.py:559
 ``_make_count_tail`` (single-end, and with ``in_dedup`` the paired mode
 that uniques each over-threshold read's windows first, search/dedup.py)
 and of its compaction, ``_nonzero_asc`` / ``_compact_candidates``
-(:97-137).  The kernel is K2' (search/count.py); thresholding inputs and
-compaction are plain torch, as the JAX package leaves them to XLA.
+(:97-137).  The kernels are K2' (search/count.py) and, on the card, K7'
+(``DenseCompaction``, csrc/compact.cu), which compacts K2''s mask words
+straight into the result layout; thresholding inputs are plain torch, as
+the JAX package leaves them to XLA.
 
 The streaming tails never make the host wait for the card: every shape is
-fixed by the budget.  ``compact_mask`` finds the first ``budget`` set bits
-of K2''s mask words by a popcount, a cumsum and a ``searchsorted`` for each
-output slot (the word-then-bit pass of device_screened.py:455-498), with
-the exact total as a device scalar; the read chunks of the dense tail each
-get slots for the whole budget and are spliced on the device
-(``splice``), so the total stays exact past the budget (the JAX chunked
-tail, :845-889, gives each chunk a share and reports budget + 1 instead).
+fixed by the budget.  K7' ranks each read chunk's set bits after the
+earlier chunks' on the device and writes the first ``budget`` of the
+batch, so the total stays exact past the budget (the JAX chunked tail,
+:845-889, gives each chunk a share and reports budget + 1 instead).  Its
+plain version, which the CPU takes and the screened and mesh tails use,
+is ``compact_mask``: the first ``budget`` set bits by a popcount, a cumsum
+and a ``searchsorted`` for each output slot (the word-then-bit pass of
+device_screened.py:455-498), with the exact total as a device scalar; each
+read chunk gets slots for the whole budget and the chunks are spliced on
+the device (``splice``).
 ``count_tail_async`` returns a ``TailResult`` of device tensors, the row
 range of ``loc`` among them: the tail gathers with ``loc`` clamped into the
 table (``count.defer_rows``) and ``host_result`` raises on the range once
@@ -53,6 +58,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..kernels._build import get_lib
 from ..utils import trace
 from .count import check_range, count_mask, defer_rows
 from .dedup import dedup_planes
@@ -235,6 +241,107 @@ def pack_result(ids: torch.Tensor, cnt: torch.Tensor, nk: torch.Tensor,
     return meta, aux
 
 
+class DenseCompaction:
+    """A batch's candidates in the dense ``(meta, aux)`` layout, compacted
+    read chunk by read chunk in order: ``add`` each chunk's K2' mask words
+    int32 [B_c, W] and counts int32 [B_c, 32 W]; once the chunks cover the
+    batch's ``n_flat`` = B * 32 W flat ids, ``result()`` is ``pack_result``
+    of the batch's first ``budget`` candidates with the exact total and nk
+    int32 [B].
+
+    A CPU tensor takes ``add_plain`` (``compact_candidates`` on each chunk,
+    ``splice``, ``pack_result``); a CUDA tensor launches K7'
+    (``csrc/compact.cu``: two kernels a chunk, the running total carried
+    on the device, the last chunk writing the padding, nk and meta[0]) or
+    raises.  ``launches`` counts the chunks it compacted; with tracing on,
+    so does the counter ``compact_launches``."""
+
+    launches = 0
+
+    def __init__(self, nk: torch.Tensor, n_flat: int, budget: int):
+        self.nk, self.n_flat, self.budget = nk, n_flat, budget
+        self.done = 0  # flat ids of the chunks added so far
+        self.chunks = 0
+        self.parts: list = []
+        self.meta = self.aux = self.carry = None
+
+    def add(self, mask: torch.Tensor, counts: torch.Tensor) -> None:
+        if mask.device.type == "cpu":
+            return self.add_plain(mask, counts)
+        self._check(mask, counts)
+        lib = get_lib()
+        dev = mask.device
+        n_words = mask.numel()
+        last = self.done + 32 * n_words == self.n_flat
+        if self.meta is None:
+            self.meta = torch.empty(1 + self.budget, dtype=torch.int32,
+                                    device=dev)
+            self.aux = torch.empty(self.budget + self.nk.shape[0],
+                                   dtype=torch.int32, device=dev)
+            self.carry = torch.empty(2, dtype=torch.int64, device=dev)
+        tiles = torch.empty(lib.kmcp_compact_tiles(n_words),
+                            dtype=torch.int32, device=dev)
+        rc = lib.kmcp_compact(
+            mask.data_ptr(), counts.data_ptr(), n_words, self.done,
+            tiles.data_ptr(), tiles.numel(), self.carry.data_ptr(),
+            self.chunks & 1, self.done == 0, last, self.budget,
+            self.meta.data_ptr(), self.aux.data_ptr(), self.nk.data_ptr(),
+            self.nk.shape[0], min(self.n_flat, 2**31 - 1),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+        if rc != 0:
+            raise RuntimeError(f"compact kernel launch failed: cuda error "
+                               f"{rc}")
+        self.done += 32 * n_words
+        self.chunks += 1
+        DenseCompaction.launches += 1
+        if trace.TRACER.on:
+            trace.count("compact_launches", 1)
+
+    def _check(self, mask: torch.Tensor, counts: torch.Tensor) -> None:
+        if mask.device.type != "cuda":
+            raise ValueError(f"the compaction kernel needs a CUDA device, "
+                             f"got {mask.device}")
+        for name, t in (("mask", mask), ("counts", counts), ("nk", self.nk)):
+            if t.dtype != torch.int32:
+                raise ValueError(f"{name} must be int32, got {t.dtype}")
+            if not t.is_contiguous():
+                raise ValueError(f"{name} must be contiguous")
+            if t.device != mask.device:
+                raise ValueError(f"{name} is on {t.device}, mask on "
+                                 f"{mask.device}")
+        if (mask.dim() != 2 or not mask.numel()
+                or tuple(counts.shape) != (mask.shape[0], 32 * mask.shape[1])):
+            raise ValueError(f"mask must be [B_c > 0, W] and counts [B_c, "
+                             f"32 W], got {tuple(mask.shape)} and "
+                             f"{tuple(counts.shape)}")
+        if self.done + 32 * mask.numel() > self.n_flat:
+            raise ValueError(f"chunks past the batch's {self.n_flat} flat "
+                             "ids")
+
+    def add_plain(self, mask: torch.Tensor, counts: torch.Tensor) -> None:
+        """``add`` in plain PyTorch, on any device."""
+        idx, cnt, n = compact_candidates(mask, counts, self.budget, 0)
+        self.parts.append((n, idx + self.done, cnt))
+        self.done += 32 * mask.numel()
+        if self.done != self.n_flat:
+            return
+        n, (ids, cnt), valid = splice(self.parts, self.budget)
+        ids = torch.where(valid, ids, min(self.n_flat, 2**31 - 1))
+        self.meta, self.aux = pack_result(ids, torch.where(valid, cnt, 0),
+                                          self.nk, self.budget, self.n_flat,
+                                          n)
+        self.parts = []
+
+    def result(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(meta, aux) int32 on the device; raises until the chunks cover
+        the batch."""
+        if self.done != self.n_flat:
+            raise ValueError(f"chunks cover {self.done} of the batch's "
+                             f"{self.n_flat} flat ids")
+        return self.meta, self.aux
+
+
 def pack_result_split(q: torch.Tensor, t: torch.Tensor, cnt: torch.Tensor,
                       nk: torch.Tensor, budget: int, total=None
                       ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -275,8 +382,8 @@ def count_tail_async(bits_ext: torch.Tensor, loc: torch.Tensor,
     enqueued without waiting for the device.
 
     K2' runs on read chunks of ``chunk_reads`` (default: counts near
-    COUNTS_BYTES); each chunk compacts to the whole budget and the chunks
-    splice in order, so the flat ids ascend.  With ``in_dedup`` (paired
+    COUNTS_BYTES); ``DenseCompaction`` ranks each chunk's candidates after
+    the earlier chunks', so the flat ids ascend and the total is exact.  With ``in_dedup`` (paired
     streaming) ``values`` int64 [B, K] are the window values: reads over
     ``dedup_threshold`` windows are uniqued (``dedup_planes``, sentinel
     row S) instead of excluded, and their nk, floors and reported k-mer
@@ -294,21 +401,16 @@ def count_tail_async(bits_ext: torch.Tensor, loc: torch.Tensor,
         cthr = read_floor(nk, lens, cmin, min_len, dedup_threshold,
                           in_dedup)
         loc, ranges = defer_rows(loc, bits_ext.shape[0])
-    parts = []
+    comp = DenseCompaction(nk, B * T, budget)
     for b0 in range(0, B, chunk_reads):
         b1 = min(B, b0 + chunk_reads)
         with trace.span("k2.count_mask"):
             counts, mask = count_mask(bits_ext, loc[b0:b1], cthr[b0:b1],
                                       thr, rows_checked=True)
         with trace.span("tail.compact"):
-            idx, cnt, n = compact_candidates(mask, counts, budget, 0)
-            parts.append((n, idx + b0 * T, cnt))
+            comp.add(mask, counts)
         del counts, mask  # the next chunk may reuse them (~1 GB)
-    with trace.span("tail.compact"):
-        n, (ids, cnt), valid = splice(parts, budget)
-        ids = torch.where(valid, ids, min(B * T, 2**31 - 1))
-        meta, aux = pack_result(ids, torch.where(valid, cnt, 0), nk, budget,
-                                B * T, n)
+    meta, aux = comp.result()
     return TailResult(meta, aux, ranges, (bits_ext.shape[0],))
 
 

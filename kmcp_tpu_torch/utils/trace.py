@@ -42,7 +42,8 @@ import torch
 
 clock = time.perf_counter_ns
 GENERATIONS = 3
-COUNTERS = ("batches", "queries", "tsv_rows", "h2d_bytes", "d2h_bytes")
+COUNTERS = ("batches", "queries", "tsv_rows", "h2d_bytes", "d2h_bytes",
+            "compact_launches")
 
 
 def env_on() -> bool:

@@ -8,7 +8,9 @@ at ragged S_pad and T, partial and padding tiles, multiplicity 256,
 sentinel-only reads, FLOOR_NEVER floors, bit 31 and two sweeps; K1''s
 value plane at single-end and paired row lengths, every modulus path and
 rows too long to stage in shared memory), the count and screened tails,
-single-end and paired (in_dedup), a sketch DB's window selection after
+single-end and paired (in_dedup), K7' (the dense tail's compaction) on
+narrow and wide masks, empty and full, in one read chunk or many and at
+budgets on both sides of the total, a sketch DB's window selection after
 K1' and the object engine's TorchBlockCounter (K2' on short, wide, folded
 and -g rows), on the card against their CPU runs, the multi-rank
 dry run on the card (a world of one rank on nccl, two ranks sharing the
@@ -31,8 +33,10 @@ from kmcp_tpu_torch.search.count import count_mask, count_mask_plain
 from kmcp_tpu_torch.search.device import _copy_async
 from kmcp_tpu_torch.search.device_step import (
     FLOOR_NEVER,
+    DenseCompaction,
     count_tail,
     count_tail_async,
+    host_result,
 )
 from kmcp_tpu_torch.search.group_count import (
     gemm_slabs,
@@ -547,6 +551,96 @@ def test_count_tail_in_dedup_cuda_matches_cpu(cuda):
     assert outs[0][0][0] > 0
     np.testing.assert_array_equal(outs[0][0], outs[1][0])
     np.testing.assert_array_equal(outs[0][1], outs[1][1])
+
+
+def _compaction_inputs(rng, B, W, density):
+    """K2''s outputs as the compaction reads them: mask int32 [B, W] with
+    each bit set at ``density``, counts int32 [B, 32 W] and nk int32 [B],
+    both past 65,535 in places."""
+    ok = rng.random((B, W, 32)) < density
+    mask = np.packbits(ok, axis=-1, bitorder="little").view("<u4")
+    counts = rng.integers(0, 70_000, (B, 32 * W)).astype(np.int32)
+    nk = rng.integers(0, 70_000, B).astype(np.int32)
+    return mask.reshape(B, W).view(np.int32), counts, nk
+
+
+def _compacted(mask, counts, nk, budget, chunk_reads):
+    comp = DenseCompaction(nk, counts.numel(), budget)
+    for b0 in range(0, mask.shape[0], chunk_reads):
+        comp.add(mask[b0 : b0 + chunk_reads].contiguous(),
+                 counts[b0 : b0 + chunk_reads].contiguous())
+    return comp.result()
+
+
+# (W, B, density, chunk_reads): B * W a multiple of the kernel's tile of
+# 4,096 words or not, empty and all-ones masks, one read chunk or many
+# (a chunk starting at an odd row of a narrow mask: unaligned words)
+@pytest.mark.parametrize("W,B,density,chunk_reads", [
+    (1, 4096, 0.3, 4096), (1, 1000, 0.3, 64), (5, 777, 0.05, 100),
+    (5, 4096, 1.0, 4096), (80, 512, 0.0, 512), (80, 300, 0.02, 7),
+    (80, 2048, 0.001, 2048), (4096, 3, 0.01, 3), (4096, 5, 1.0, 2),
+])
+def test_dense_compaction_kernel_matches_plain(cuda, W, B, density,
+                                               chunk_reads):
+    """K7' (``DenseCompaction`` on the card) writes the plain
+    composition's (meta, aux) byte for byte at budgets under, at and over
+    the total and at a 4x retry's, one launch a read chunk."""
+    rng = np.random.default_rng(W * 31 + B)
+    arrays = _compaction_inputs(rng, B, W, density)
+    cpu = [torch.from_numpy(a) for a in arrays]
+    dev = [t.to(cuda) for t in cpu]
+    total = int(np.unpackbits(arrays[0].view(np.uint8)).sum())
+    under = max(1, total // 3)
+    chunks = -(-B // chunk_reads)
+    for budget in (under, max(1, total), total + 37, 4 * under):
+        n0 = DenseCompaction.launches
+        got = _compacted(*dev, budget, chunk_reads)
+        torch.cuda.synchronize()
+        assert DenseCompaction.launches == n0 + chunks
+        want = _compacted(*cpu, budget, chunk_reads)
+        assert int(want[0][0]) == total
+        assert torch.equal(got[0].cpu(), want[0])
+        assert torch.equal(got[1].cpu(), want[1])
+
+
+def test_count_tail_async_paired_compaction_on_card(cuda):
+    """The dense tail at paired widths (K = 300, ``in_dedup``) on 80-word
+    rows in five read chunks, under a budget a third of the total: the
+    card's result equals the CPU's, K7' launched once a chunk and counted
+    by ``compact_launches`` while tracing is on."""
+    from kmcp_tpu_torch.utils import trace
+
+    rng = np.random.default_rng(21)
+    S, W, B, K, thr = 3578, 80, 600, 300, 120
+    bits = _blocks(rng, 1, S, W)
+    vals, (loc,), nk = _paired_planes(rng, B, K, [S], thr)
+    arrays = (bits, loc[..., None], nk,
+              rng.integers(100, 160, B).astype(np.int32),
+              np.minimum(np.arange(K + 1, dtype=np.int32) // 3 + 5, K),
+              np.full(32 * W, 1, dtype=np.int32))
+
+    def tail(dev, budget):
+        t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+             for a in arrays]
+        return host_result(count_tail_async(
+            *t, budget, 30, thr, chunk_reads=128, in_dedup=True,
+            values=torch.from_numpy(vals).to(dev)))
+
+    total = int(tail(torch.device("cpu"), 1)[0][0])
+    budget = total // 3
+    want = tail(torch.device("cpu"), budget)
+    n0 = DenseCompaction.launches
+    trace.enable()
+    try:
+        got = tail(cuda, budget)
+        launches = trace.summary()["counters"]["compact_launches"]
+    finally:
+        trace.disable()
+        trace.reset()
+    assert total > 100 and int(got[0][0]) == total
+    assert DenseCompaction.launches == n0 + 5 and launches == 5
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
 
 
 @pytest.mark.parametrize("pass2", ["pair", "gemm"])

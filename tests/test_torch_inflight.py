@@ -7,7 +7,9 @@ an integer):
   ``_compact_candidates`` run in JAX, at budgets under, at and over the
   total;
 - the dense tail's chunk splice against ``compact_plain`` + ``pack_result``
-  over the whole batch, with the candidates crowded into one chunk;
+  over the whole batch, with the candidates crowded into one chunk, and
+  ``DenseCompaction``'s CPU route across chunkings and budgets; off the CPU
+  it raises rather than taking the plain version;
 - the screened pair list against ``_nonzero_asc`` over the same active
   mask, and a pair overflow reporting budget + 1 as the JAX tail does;
 - the sharded screened tail on a world of one, its last pass-2 chunks
@@ -33,7 +35,9 @@ from kmcp_tpu_torch.search import engine as port_engine
 from kmcp_tpu_torch.search import stream as stream_mod
 from kmcp_tpu_torch.search.count import count_mask_plain
 from kmcp_tpu_torch.parallel.sharding import make_mesh
+from kmcp_tpu_torch.search import device_step
 from kmcp_tpu_torch.search.device_step import (
+    DenseCompaction,
     compact_candidates,
     compact_plain,
     count_tail,
@@ -152,6 +156,61 @@ def test_chunk_splice_matches_compact_plain(crowded):
         np.testing.assert_array_equal(got[0], want[0])
         np.testing.assert_array_equal(got[1], want[1])
         assert int(got[0][0]) == n_all
+
+
+def compaction_budget(kind: str, total: int) -> int:
+    """A budget under, at or over a total, or the 4x retry of the one
+    under it."""
+    under = max(1, total // 3)
+    return {"under": under, "at": max(1, total), "over": total + 37,
+            "retry": 4 * under}[kind]
+
+
+@pytest.mark.parametrize("budget_kind", ["under", "at", "over", "retry"])
+@pytest.mark.parametrize("chunk_reads", [1, 7, 50, 64])
+def test_dense_compaction_matches_compact_plain(chunk_reads, budget_kind):
+    """``DenseCompaction`` on CPU tensors, fed the batch's read chunks in
+    order, against one ``compact_plain`` + ``pack_result`` of the whole
+    batch, byte for byte: counts and nk past 65,535 clamp, and the total
+    stays exact past the budget."""
+    rng = np.random.default_rng(8)
+    B, W = 64, 3
+    ok = rng.random((B, 32 * W)) < 0.05
+    ok[9] = True  # a read of full words (bit 31 set: negative int32)
+    ok[20:40] = False
+    mask = torch.from_numpy(pack_words(ok))
+    counts = torch.from_numpy(
+        rng.integers(0, 70_000, (B, 32 * W)).astype(np.int32))
+    nk = torch.from_numpy(rng.integers(0, 70_000, B).astype(np.int32))
+    ids, cnt = compact_plain(mask, counts)
+    budget = compaction_budget(budget_kind, ids.numel())
+    want = pack_result(ids, cnt, nk, budget, B * 32 * W)
+    comp = DenseCompaction(nk, B * 32 * W, budget)
+    for b0 in range(0, B, chunk_reads):
+        with pytest.raises(ValueError, match="chunks cover"):
+            comp.result()
+        comp.add(mask[b0 : b0 + chunk_reads], counts[b0 : b0 + chunk_reads])
+    got = comp.result()
+    assert int(got[0][0]) == ids.numel() > 96
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_dense_compaction_off_the_cpu_raises(monkeypatch):
+    """A tensor that is not on the CPU goes to the kernel, never to the
+    plain version: here, with no CUDA, that raises."""
+    def plain(*a, **k):
+        raise AssertionError("fell back to the plain version")
+
+    monkeypatch.setattr(device_step, "compact_candidates", plain)
+    B, W = 8, 2
+    mask = torch.zeros((B, W), dtype=torch.int32, device="meta")
+    counts = torch.zeros((B, 32 * W), dtype=torch.int32, device="meta")
+    nk = torch.zeros(B, dtype=torch.int32, device="meta")
+    comp = DenseCompaction(nk, B * 32 * W, 16)
+    n0 = DenseCompaction.launches
+    with pytest.raises(ValueError, match="needs a CUDA device"):
+        comp.add(mask, counts)
+    assert DenseCompaction.launches == n0
 
 
 def test_pair_list_matches_jax():

@@ -242,7 +242,8 @@ def test_run_search_exports_the_summary(world, tmp_path, monkeypatch,
     assert c["retries"] == stats["retries"]
     assert c["slow_rows"] == stats["slow_rows"] > 0
     assert set(c["launches"]) == {"hash_loc", "count_mask", "pair_count",
-                                  "group_count"}
+                                  "group_count", "compact"}
+    assert c["compact_launches"] == 0  # the CPU takes the plain version
     assert (tmp_path / "a.tsv").read_bytes() == \
         (tmp_path / "b.tsv").read_bytes()
     line = capsys.readouterr().err.strip().splitlines()[-1]
