@@ -4,15 +4,44 @@ worked out again from the configuration's genomes in plain PyTorch.
 It imports nothing of the program and takes nothing the program made: it
 hashes the genomes itself (canonical ntHash1, Mohamadi et al. 2016), cuts
 them into chunk targets by KMCP's rule, sizes the Bloom rows by the COBS
-formula, orders the targets as ``index --tpu-native`` lays them out, and
-for each query counts, thresholds and formats its TSV rows as KMCP's
-``search`` does (qCov, tCov, jacc, the Theorem-2 query FPR of the SBT
-paper, rows by mKmers down, target k-mers up, target position up).
+formula, lays the targets out in blocks as ``index --tpu-native`` does,
+and for each query counts, screens, thresholds and formats its TSV rows as
+KMCP's ``search`` does (qCov, tCov, jacc, the Theorem-2 query FPR of the
+SBT paper, rows by mKmers down, target k-mers up, target position up).
 
-Bits are kept as a plain [rows, targets] table of booleans; a query's
-count for every target is the sum of its windows' rows.  The genomes are
-hashed a few at a time.  Runs on the card once the program is freed, or on
-the CPU in the tests.
+**Layout.**  Targets are sorted stably by k-mer count over the whole DB
+and cut into blocks of ``block_targets``; in each block every run of 8 is
+sorted by (name, chunk).  Every block has the COBS row count of the DB's
+largest target: a DB of more than one block is the program's only with
+``block_screen`` (``index --block-screen --uniform-sigs``), and one block
+has its own largest.  A target's position is (block, lane), which is also
+the order of its rows' last key.
+
+**Union screen** (``block_screen``, on a DB of more than one block, as
+the program screens only then).  Each block has a union Bloom of its
+targets' k-mers, one hash, bit ``h mod m``: m is index's size under
+``--uniform-sigs``, the COBS size at one hash and a false-positive rate
+of ``SCREEN_FPR_U`` for a block's summed target k-mers rounded up to a
+power of two of at least 64, the largest over the blocks and the same for
+every block, and a block's rate is the exact f = 1 - (1 - 1/m)^n, n its
+summed target k-mers.  A
+(query, block) pair counts only where the query's union hits reach
+theta = max(min_kmers, ceil(f q + 3 sqrt(q f (1 - f)))), in float64: q
+is the query's k-mer count, and q and the hits are over the windows that
+the program counts, every valid window (repeats included) of a query
+within ``kmer_dedup_threshold`` and the distinct windows of one past it,
+a pair's mates joined as one k-mer set (the port's ``HostDB._screen``,
+and ``screen.active_mask`` after the screened tail's in-step dedup).
+Otherwise no target of that block counts for the query.
+
+**Storage.**  Bits are packed 32 targets to an int32 word ([words, rows]
+a block, the blocks one after another in one flat array) and each union
+32 bits to a word, so memory follows the DB's own bytes.  A bit is set by
+adding its value to its word once, which for distinct bits is the OR: a
+target's rows are flagged and added at its lane in one call, and a
+union's new bits are uniqued first (``set_bits``).  The genomes are
+hashed a few at a time, twice (sizes, then bits and unions in one pass).
+Runs on the card once the program is freed, or on the CPU in the tests.
 
 ``control`` breaks one guarantee of the configuration, for the check that
 the comparison can fail: ``"forward_strand"`` hashes the reads on their
@@ -24,6 +53,7 @@ from __future__ import annotations
 
 import functools
 import math
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -36,6 +66,7 @@ SEEDS = (0x3C8BFBB395C60474, 0x3193C18562A02B4C, 0x20323ED082572324,
 M64 = (1 << 64) - 1
 SIGN = -(1 << 63)
 CONTROLS = ("forward_strand", "counts_u8")
+SCREEN_FPR_U = 0.25  # index --block-screen's union false-positive rate
 GENOMES_AT_ONCE = 8
 CODE = np.full(256, 4, dtype=np.uint8)
 CODE[list(b"ACGT")] = np.arange(4, dtype=np.uint8)
@@ -122,16 +153,61 @@ class Hasher:
         return h, ~bad & (h != 0)
 
 
-def rows_of(h: torch.Tensor, num_sigs: int) -> torch.Tensor:
-    """h (uint64 bits in int64) mod num_sigs, exact for num_sigs < 2^31."""
+def rows_of(h: torch.Tensor, num_sigs) -> torch.Tensor:
+    """h (uint64 bits in int64) mod num_sigs (an int, or int64 that
+    broadcasts against h), exact for num_sigs < 2^31."""
     hi = (h >> 32) & 0xFFFFFFFF
     lo = h & 0xFFFFFFFF
     return ((hi % num_sigs) * (1 << 32) + lo) % num_sigs
 
 
+def union_bits(n_kmers: int) -> int:
+    """index's union screen for ``n_kmers``: the COBS size at one hash and
+    ``SCREEN_FPR_U``, rounded up to a power of two of at least 64 bits."""
+    bits = signature_size(n_kmers, 1, SCREEN_FPR_U)
+    return 1 << max(6, (bits - 1).bit_length())
+
+
+def union_fpr(num_bits: int, n_kmers: int) -> float:
+    """The exact one-hash rate of a union of ``n_kmers``: 1 - (1 - 1/m)^n."""
+    return -math.expm1(max(n_kmers, 1) * math.log1p(-1.0 / num_bits))
+
+
+def bit_value(bit: torch.Tensor) -> torch.Tensor:
+    """int32 words with bit ``bit`` (0-31) alone set: 1 << bit, and -2^31
+    for bit 31."""
+    value = 1 << bit.long()
+    return torch.where(bit == 31, value - (1 << 32), value).to(torch.int32)
+
+
+def set_bits(words: torch.Tensor, keys: torch.Tensor) -> None:
+    """Set the bits ``keys`` (int64; bit i is bit i & 31 of word i >> 5)
+    of the int32 ``words``: each bit not set yet is added to its word once,
+    which for distinct bits is their OR (no partial sum leaves int32)."""
+    keys = torch.unique(keys)
+    word, bit = keys >> 5, keys & 31
+    new = ((words[word].long() >> bit) & 1) == 0
+    words.index_add_(0, word[new], bit_value(bit[new]))
+
+
+@dataclass
+class Block:
+    """One block: its targets in lane order, where its bits and its union
+    start, and the union's rate."""
+
+    genome: np.ndarray  # [n] each lane's genome
+    chunk: np.ndarray  # [n] and chunk
+    sizes: np.ndarray  # [n] and distinct k-mers
+    words: int  # 32 lanes a word
+    offset: int  # its first word in ``Reference.bits``
+    union_offset: int = 0  # its first word in ``Reference.unions``
+    fpr_u: float = 0.0
+
+
 class Reference:
     """The DB of ``config`` rebuilt from ``codes`` (its genomes, [G, L]
-    base codes) on ``device``; ``rows`` gives each query's TSV rows."""
+    base codes) on ``device``; ``rows`` gives each query's TSV rows.
+    ``num_sigs`` rows a block, ``union_bits`` a union (0: no screen)."""
 
     def __init__(self, config: dict, codes: np.ndarray, device):
         if config["num_hashes"] != 1:
@@ -145,9 +221,85 @@ class Reference:
         G, L = codes.shape
         bounds = chunk_bounds(config)
         C = len(bounds)
+        self.n_chunks, self.genome_bp = C, L
+        sizes = self._sizes(codes, bounds).reshape(-1)  # target g C + c
 
-        # target sizes: distinct non-zero hashes of each chunk
-        sizes = np.zeros((G, C), dtype=np.int64)
+        # the blocks: targets stably by k-mer count, cut every
+        # block_targets, each run of 8 by (name, chunk)
+        order = sorted(range(G * C), key=lambda t: sizes[t])
+        cut = config["block_targets"]
+        groups = [order[i:i + cut] for i in range(0, len(order), cut)]
+        screen = len(groups) > 1
+        if screen and not config.get("block_screen"):
+            raise NotImplementedError("the program serves a DB of more "
+                                      "than one block only screened: "
+                                      "set block_screen")
+        self.num_sigs = signature_size(int(sizes.max()), 1, config["fpr"])
+        self.union_bits = max(union_bits(int(sizes[g].sum()))
+                              for g in groups) if screen else 0
+        block_of = np.zeros(G * C, dtype=np.int64)
+        lane = np.zeros(G * C, dtype=np.int64)
+        self.blocks: list[Block] = []
+        words = u_words = 0
+        for b, members in enumerate(groups):
+            placed = []
+            for r0 in range(0, len(members), 8):
+                placed.extend(sorted(members[r0:r0 + 8]))
+            placed = np.asarray(placed, dtype=np.int64)
+            block_of[placed], lane[placed] = b, np.arange(len(placed))
+            blk = Block(placed // C, placed % C, sizes[placed],
+                        -(-len(placed) // 32), words)
+            words += self.num_sigs * blk.words
+            if screen:
+                blk.union_offset, blk.fpr_u = u_words, union_fpr(
+                    self.union_bits, int(sizes[placed].sum()))
+                u_words += self.union_bits // 32
+            self.blocks.append(blk)
+        self.bits = torch.zeros(words, dtype=torch.int32, device=self.device)
+        self.unions = torch.zeros(u_words, dtype=torch.int32,
+                                  device=self.device)
+
+        # a target's rows are flagged (a scatter) and added into its lane's
+        # bit of each row's word: every target is set once, in one call,
+        # so the adds are ORs.  A union's bits: base + h mod m (set_bits)
+        block_of, lane = block_of.reshape(G, C), lane.reshape(G, C)
+        value = np.where(lane % 32 == 31, -(1 << 31), 1 << (lane % 32))
+        u_base = torch.tensor([32 * blk.union_offset for blk in self.blocks],
+                              device=self.device)[
+                                  torch.from_numpy(block_of).to(self.device)]
+        for g0, hashes in self._genome_hashes(codes):
+            part = slice(g0, g0 + len(hashes))
+            for c, (a, e) in enumerate(bounds):
+                h = hashes[:, a:e - self.k + 1]
+                kept = h != 0
+                rows_c = torch.where(kept, rows_of(h, self.num_sigs),
+                                     self.num_sigs)
+                for b in np.unique(block_of[part, c]).tolist():
+                    blk, sel = self.blocks[b], block_of[part, c] == b
+                    rows = rows_c
+                    if not sel.all():
+                        rows = rows_c[torch.from_numpy(np.nonzero(sel)[0]).to(
+                            self.device)]
+                    flags = torch.zeros((len(rows), self.num_sigs + 1),
+                                        dtype=torch.int32, device=self.device)
+                    flags.scatter_(1, rows, 1)
+                    word, val = (torch.from_numpy(x[part, c][sel]).to(
+                        self.device) for x in (lane // 32, value))
+                    self.table(blk).index_add_(0, word, flags[:, :-1]
+                                               * val.to(torch.int32)[:, None])
+                if screen:
+                    set_bits(self.unions, (u_base[part, c:c + 1] + (
+                        h & (self.union_bits - 1)))[kept])
+        self._fpr: dict = {}
+
+    def table(self, blk: Block) -> torch.Tensor:
+        """``blk``'s bits, word-major: int32 [words, num_sigs], a view."""
+        return self.bits[blk.offset:blk.offset + self.num_sigs
+                         * blk.words].view(blk.words, self.num_sigs)
+
+    def _sizes(self, codes: np.ndarray, bounds) -> np.ndarray:
+        """[G, C] distinct non-zero hashes of each chunk target."""
+        sizes = np.zeros((codes.shape[0], len(bounds)), dtype=np.int64)
         for g0, hashes in self._genome_hashes(codes):
             for c, (a, b) in enumerate(bounds):
                 h = hashes[:, a:b - self.k + 1].sort(dim=1).values
@@ -155,38 +307,7 @@ class Reference:
                 distinct[:, 1:] = h[:, 1:] != h[:, :-1]
                 sizes[g0:g0 + len(h), c] = (
                     distinct & (h != 0)).sum(1).cpu().numpy()
-
-        # target order in the one block (index --tpu-native): stably by
-        # k-mer count, each run of 8 by (name, chunk)
-        order = sorted(range(G * C), key=lambda i: sizes.flat[i])
-        if len(order) > config["block_targets"]:
-            raise NotImplementedError("more targets than one block holds")
-        placed = []
-        for r0 in range(0, len(order), 8):
-            placed.extend(sorted(order[r0:r0 + 8]))
-        self.T = -(-len(placed) // 32) * 32
-        pos = np.zeros(G * C, dtype=np.int64)
-        pos[placed] = np.arange(len(placed))
-        self.pos = pos.reshape(G, C)
-        self.size_of = np.zeros(self.T, dtype=np.int64)
-        self.size_of[self.pos.reshape(-1)] = sizes.reshape(-1)
-        self.name_of = {int(self.pos[g, c]): (genome_name(g), c)
-                        for g in range(G) for c in range(C)}
-        self.n_chunks, self.genome_bp = C, L
-
-        # rows: the block sized by its largest target
-        self.num_sigs = signature_size(int(sizes.max()), 1, config["fpr"])
-
-        self.bits = torch.zeros((self.num_sigs, self.T), dtype=torch.bool,
-                                device=self.device)
-        tpos = torch.from_numpy(self.pos).to(self.device)
-        for g0, hashes in self._genome_hashes(codes):
-            for c, (a, b) in enumerate(bounds):
-                h = hashes[:, a:b - self.k + 1]
-                t = tpos[g0:g0 + len(h), c:c + 1].expand_as(h)
-                set_ = h != 0
-                self.bits[rows_of(h[set_], self.num_sigs), t[set_]] = True
-        self._fpr: dict = {}
+        return sizes
 
     def _genome_hashes(self, codes: np.ndarray):
         """(first genome, hashes [n, L - k + 1]) of each group of
@@ -201,10 +322,38 @@ class Reference:
             v = self._fpr[(n, c)] = query_fpr(n, c, self.config["fpr"])
         return v
 
-    def _counts(self, rows: torch.Tensor) -> torch.Tensor:
-        """rows [Q, K] Bloom rows (-1: no window) -> counts [Q, T]."""
-        hit = self.bits[rows.clamp(min=0)] & (rows >= 0)[..., None]
-        return hit.sum(1)
+    def _counts(self, h: torch.Tensor, ok: torch.Tensor) -> list:
+        """Windows (hashes, valid) [Q, K] -> each block's counts [Q, 32 W]
+        (int64), zero where the query does not pass the block's screen."""
+        n = ok.sum(1).cpu().numpy().astype(np.float64)
+        rows = rows_of(h, self.num_sigs)
+        out = []
+        for blk in self.blocks:
+            got = self.table(blk)[:, rows]
+            got = torch.where(ok, got, 0)  # [W, Q, K]
+            counts = torch.stack([((got >> j) & 1).sum(2) for j in
+                                  range(32)], 2)  # [W, Q, 32]
+            counts = counts.transpose(0, 1).reshape(len(h), -1)
+            if self.union_bits:
+                hits, theta = self.screen(blk, h, ok, n)
+                counts[torch.from_numpy(hits < theta).to(counts.device)] = 0
+            out.append(counts)
+        return out
+
+    def screen(self, blk: Block, h: torch.Tensor, ok: torch.Tensor,
+               n: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """(union hits, theta) [Q] of the windows (h, ok) [Q, K] against
+        ``blk``'s union screen, ``n`` [Q] float64 the queries' k-mer
+        counts: the pair counts where hits >= theta."""
+        u = self.unions[blk.union_offset:blk.union_offset
+                        + self.union_bits // 32]
+        p = h & (self.union_bits - 1)
+        hits = ((((u[p >> 5].long() >> (p & 31)) & 1) == 1)
+                & ok).sum(1).cpu().numpy()
+        f = blk.fpr_u
+        theta = np.maximum(self.search["min_kmers"], np.ceil(
+            f * n + 3.0 * np.sqrt(n * f * (1.0 - f))))
+        return hits, theta
 
     def rows(self, queries: list, control: str | None = None,
              block: int = 256) -> list[list[str]]:
@@ -253,11 +402,6 @@ class Reference:
         h, ok = self._query_kmers(queries, control != "forward_strand")
         qlens = [len(s1) + (len(s2) if s2 is not None else 0)
                  for _q, s1, s2, _i in queries]
-        rows = torch.where(ok, rows_of(h, self.num_sigs),
-                           torch.full_like(h, -1))
-        counts = self._counts(rows)
-        if control == "counts_u8":
-            counts = counts.clamp(max=255)
         nks = ok.sum(1).tolist()
         floors = []
         for (_q, s1, s2, _i), n in zip(queries, nks):
@@ -270,29 +414,34 @@ class Reference:
             short = max(len(s1), len(s2 or b"")) < opt["min_query_len"]
             ok_n = n >= opt["min_kmers"] and not short
             floors.append(max(c, opt["min_kmers"]) if ok_n else 1 << 30)
-        fl = torch.tensor(floors, device=counts.device)[:, None]
-        qi, t = torch.nonzero(counts >= fl, as_tuple=True)
-        cand = counts[qi, t]
-        qi, t, cand = qi.tolist(), t.tolist(), cand.tolist()
         per_q: list[list] = [[] for _ in queries]
-        for q, tt, c in zip(qi, t, cand):
-            size = int(self.size_of[tt])
-            if c / size < opt["min_target_cov"]:
-                continue
-            f = self._fpr_of(nks[q], c)
-            if f > opt["max_fpr"]:
-                continue
-            per_q[q].append((c, size, tt, f))
+        for b, (blk, counts) in enumerate(zip(self.blocks,
+                                              self._counts(h, ok))):
+            if control == "counts_u8":
+                counts = counts.clamp(max=255)
+            fl = torch.tensor(floors, device=counts.device)[:, None]
+            qi, t = torch.nonzero(counts >= fl, as_tuple=True)
+            cand = counts[qi, t]
+            for q, tt, c in zip(qi.tolist(), t.tolist(), cand.tolist()):
+                size = int(blk.sizes[tt])
+                if c / size < opt["min_target_cov"]:
+                    continue
+                f = self._fpr_of(nks[q], c)
+                if f > opt["max_fpr"]:
+                    continue
+                per_q[q].append((c, size, b, tt, f))
         out = []
         for (qid, _s1, _s2, idx), n, qlen, ms in zip(queries, nks, qlens,
                                                      per_q):
-            ms.sort(key=lambda m: (-m[0], m[1], m[2]))
+            ms.sort(key=lambda m: (-m[0], m[1], m[2], m[3]))
             lines = []
-            for c, size, tt, f in ms:
-                name, chunk = self.name_of[tt]
+            for c, size, b, tt, f in ms:
+                blk = self.blocks[b]
                 lines.append(
-                    f"{qid}\t{qlen}\t{n}\t{f:.4e}\t{len(ms)}\t{name}\t"
-                    f"{chunk}\t{self.n_chunks}\t{self.genome_bp}\t{self.k}\t"
+                    f"{qid}\t{qlen}\t{n}\t{f:.4e}\t{len(ms)}\t"
+                    f"{genome_name(int(blk.genome[tt]))}\t"
+                    f"{int(blk.chunk[tt])}\t{self.n_chunks}\t"
+                    f"{self.genome_bp}\t{self.k}\t"
                     f"{c}\t{c / n:.4f}\t{c / size:.4f}\t"
                     f"{c / (n + size - c):.4f}\t{idx}")
             out.append(lines)

@@ -12,6 +12,13 @@ window opens at the second query, closes at the first batch boundary past
 ``seconds`` (or where the pool ends, which its size is chosen to prevent),
 the batches in flight then drain, and its wall runs to the end of the
 drain.
+
+A configuration that sets ``block_screen`` means the two-pass screened
+search, and its run fails with no result unless that route served the
+window (``route_check``): the DB has its union screens on, every batch
+took the screened tail and none the dense tail, no query went to the
+object engine, and on the card pass 1 (K2' over the union table) and
+pass 2 (K5' or K6') launched.  Nothing falls back quietly.
 """
 
 from __future__ import annotations
@@ -115,6 +122,25 @@ def host_spans(streamer, spans: Spans):
         yield
 
 
+def route_check(route: dict, on_card: bool) -> list[str]:
+    """What kept the window off the screened route: nothing when every
+    batch took the screened tail, the dense tail none, no query went to
+    the object engine and, on the card, pass 1 and pass 2 launched."""
+    bad = []
+    if route["screened_tail"] < route["batches"]:
+        bad.append(f"{route['screened_tail']} screened tails for "
+                   f"{route['batches']} batches")
+    if route["dense_tail"]:
+        bad.append(f"{route['dense_tail']} dense tails")
+    if route["slow_rows"]:
+        bad.append(f"{route['slow_rows']} queries on the object engine")
+    if on_card and route["pass1_launches"] < route["batches"]:
+        bad.append(f"{route['pass1_launches']} pass-1 launches")
+    if on_card and not route["pass2_launches"]:
+        bad.append("no pass-2 launch")
+    return bad
+
+
 def p90(values: list) -> float:
     """The 90th percentile, linearly interpolated between ranks."""
     return float(np.percentile(values, 90))
@@ -159,10 +185,21 @@ def _measure(cell: Cell, dev, db_dir: str, tmp: str, seed: int,
     steps = [("start", time.perf_counter())]
     opt = SearchOptions(paired_fpr_buf=paired, **cfg["search"])
     engine = SearchEngine([db_dir], opt, dev)
+    screened = bool(cfg.get("block_screen"))
+    if screened and (device_mod.screen_off()
+                     or not device_mod.two_pass_ready(engine.dbs[0])):
+        raise RuntimeError(f"route check: {cell.name} sets block_screen, "
+                           "but its DB has no union screens in use, so "
+                           "the screened tail cannot serve it")
     if not usable(engine, paired):
         raise RuntimeError(f"the streamer does not take {cell.name}")
     steps.append(("DB open", time.perf_counter()))
-    streamer = TorchStreamSearcher(engine, dev)
+    # the program's calls that say which route a batch took, and the
+    # union table's packing in the set-up
+    calls = Spans()
+    with patched(device_mod, "build_packed_union", calls.wrap(
+            "union_pack", device_mod.build_packed_union)):
+        streamer = TorchStreamSearcher(engine, dev)
     k = max(engine.dbs[0].info.ks)
     batch = streamer.batch_size()
     steps.append(("device DB", time.perf_counter()))
@@ -206,6 +243,9 @@ def _measure(cell: Cell, dev, db_dir: str, tmp: str, seed: int,
         for v in getattr(kern, "by_variant", {}):
             kern.by_variant[v] = 0
     retries0, slow0 = streamer.retries, streamer.slow_rows
+    # the device DB's pair counter runs from its build: the window's
+    # pairs are the difference
+    pairs0 = int(getattr(streamer.dev, "tail_stats", {}).get("pairs", 0))
 
     sink = compare.Sink()
     starts: list[float] = []
@@ -215,6 +255,10 @@ def _measure(cell: Cell, dev, db_dir: str, tmp: str, seed: int,
         prof = None
         if trace:
             stack.enter_context(host_spans(streamer, record.spans))
+        if screened:
+            for tail in ("count_tail_async", "screened_tail_async"):
+                stack.enter_context(patched(device_mod, tail, calls.wrap(
+                    tail, getattr(device_mod, tail))))
         # every run on the card is traced: the device's busy time is an
         # end-to-end metric; the profiler's start is not the program's
         # set-up
@@ -254,6 +298,19 @@ def _measure(cell: Cell, dev, db_dir: str, tmp: str, seed: int,
     variants = {f"{n}/{v}": c for n, kern in kernel_wrappers().items()
                 for v, c in getattr(kern, "by_variant", {}).items() if c}
     ddb = streamer.dev
+    union_pack_s = (calls.total("union_pack")
+                    if "union_pack" in calls.intervals else None)
+    route = {}
+    if screened:
+        route = {"batches": len(starts),
+                 "screened_tail": len(calls.intervals["screened_tail_async"]),
+                 "dense_tail": len(calls.intervals["count_tail_async"]),
+                 "slow_rows": streamer.slow_rows - slow0,
+                 "pass1_launches": launches["count_mask"],
+                 "pass2_launches": (launches["pair_count"]
+                                    + launches["group_count"]),
+                 "active_pairs": int(getattr(ddb, "tail_stats",
+                                             {}).get("pairs", 0) - pairs0)}
     log(f"window {window_s:.4f} s: {total} of {pool.size} queries "
         f"({matched} matched) in {len(starts)} batches of {batch}, "
         f"{sink.chars} TSV characters; batch latency median "
@@ -266,6 +323,15 @@ def _measure(cell: Cell, dev, db_dir: str, tmp: str, seed: int,
         f"{streamer.slow_rows - slow0}, DB {ddb.n_blocks} block(s) x "
         f"{ddb.total_rows // ddb.n_blocks} rows x {ddb.w} words, pass 2 "
         f"{ddb.pass2}; launches {launches}, by variant {variants}")
+    if union_pack_s is not None:
+        log(f"set-up: the union table packed in {union_pack_s:.3f} s")
+    if screened:
+        bad = route_check(route, dev.type == "cuda")
+        log(f"route: {route}")
+        if bad:
+            raise RuntimeError("route check: the screened tail did not "
+                               f"serve the window of {cell.name}: "
+                               + "; ".join(bad))
     out = {"correct": False, "attempted": total, "failed": 0,
            "metrics": {}, "device": {}}
     if dev.type == "cuda":

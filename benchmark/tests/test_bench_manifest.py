@@ -77,7 +77,8 @@ def test_metrics_and_bounds(manifest):
                                           "layer", "moves"}
         assert m["moves"] in e2e and m["source"] in (
             "device_trace", "program_span", "program_counter", "host_clock")
-        assert set(m.get("workloads", cells)) <= cells
+        # listed, so that a cell added later does not report it unasked
+        assert set(m["workloads"]) <= cells
         assert os.path.isfile(os.path.join(BENCH, "metrics",
                                            m["name"] + ".py"))
         if m["unit"] == "%" and m["name"].endswith("_roofline"):
@@ -127,11 +128,15 @@ def test_new_traffic_file_and_entry_make_a_cell(tmp_path):
         json.dump(m, f)
     cell = find_cell("dense-half-se", root)
     assert cell.traffic["mix"] == {"source": 0.5, "random": 0.5}
-    # a metric without a workloads key is read in every cell that reports
-    # the metric it moves; one that lists its cells, only there
-    layer = [x["name"] for x in cell.per_layer]
-    assert {"parse_us_per_q", "device_idle_share"} <= set(layer)
-    assert "count_mask_roofline" not in layer
+    # every per-layer metric lists its cells, so a new cell reports none
+    # of them until an entry names it; one without a workloads key would
+    # be read in every cell that reports the metric it moves
+    assert cell.per_layer == []
+    del m["per_layer"][0]["workloads"]
+    with open(os.path.join(root, "BENCHMARK.json"), "w") as f:
+        json.dump(m, f)
+    layer = [x["name"] for x in find_cell("dense-half-se", root).per_layer]
+    assert layer == [m["per_layer"][0]["name"]]
 
 
 @pytest.mark.parametrize("name", ["parse_us_per_q", "writer_us_per_q",
