@@ -41,6 +41,12 @@ raises, exit non-zero):
      a quarter of its lanes set, and at
      2,048 reads of 4,096 words, exact against its plain version, with its
      device time a batch, one call's, the plain version's and its bound;
+     and K8', the paired dedup (``phase_dedup``), at the benchmark's batch
+     of 16,384 joined pairs of 300 windows (260 valid, an eighth of the
+     pairs overlapping by 80 windows), threshold 256, exact against its
+     plain version, with its device time a batch, one call's, its
+     launches, the plain version's time, ``torch.sort`` + ``torch.gather``
+     (the old route's core) as the library yardstick, and its bound;
   4. main path: a 131,072-target single-block wide DB (2,048 synthetic
      genomes x 64 chunks, k=21, one hash, FPR 0.3; the recipe of
      tools/bench_large_t.py) and 65,536 150 bp reads (40 source genomes,
@@ -268,15 +274,17 @@ def time_ms(torch, fn, reps: int = 5) -> float:
     return float(np.median(times))
 
 
-def graph_ms(torch, fn, n: int = 20, reps: int = 5) -> float:
+def graph_ms(torch, fn, n: int = 20, reps: int = 5,
+             mode: str = "global") -> float:
     """Device ms per launch of fn(): n calls captured in a CUDA graph (after
-    one call outside it), replayed between CUDA events, median of reps.  For
-    a kernel of tens of microseconds the time of one call (``time_ms``)
-    also holds the host's enqueue of the launch, while the card waits."""
+    one call outside it; ``mode`` the capture's error mode), replayed
+    between CUDA events, median of reps.  For a kernel of tens of
+    microseconds the time of one call (``time_ms``) also holds the host's
+    enqueue of the launch, while the card waits."""
     fn()
     torch.cuda.synchronize()
     g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
+    with torch.cuda.graph(g, capture_error_mode=mode):
         for _ in range(n):
             fn()
     return time_ms(torch, g.replay, reps) / n
@@ -503,6 +511,66 @@ def phase_compact(torch, dev) -> list:
         rows.append((label, err, ms, ms_p, bd, call))
         del mask, counts
     return rows
+
+
+def phase_dedup(torch, dev) -> list:
+    """Phase 3, K8': the paired dedup (``dedup_planes``) of 16,384 joined
+    pairs of 300 windows as K1' gives them (mate 1 windows 0-129, mate 2
+    150-279, the rest invalid; values from genome positions, an eighth of
+    the pairs with mate 2 50 bp on, so 80 windows repeat), threshold 256,
+    one location plane [B, K, 1], against its plain version (exact), timed
+    as the tail calls it: device ms a batch (CUDA graph, nk reset from a
+    copy before each call, the reset's time given apart), one call's, the
+    plain version's, ``torch.sort`` + ``torch.gather`` and the bound: the
+    uniqued rows' values and nk read once, nk and a sentinel a dropped
+    window written once."""
+    from kmcp_tpu_torch.search.dedup import dedup_planes, dedup_planes_plain
+
+    B, K, thr, S = 16_384, 300, 256, 889_648
+    gen = torch.Generator(device=dev).manual_seed(21)
+    start = torch.randint(0, 2**40, (B, 1), device=dev, generator=gen)
+    off = torch.where(torch.arange(B, device=dev)[:, None] % 8 == 7, 50, 200)
+    i = torch.arange(K, device=dev)[None]
+    pos = torch.where(i < 150, start + i, start + off + i - 150)
+    valid = (i < 130) | ((i >= 150) & (i < 280))
+    mix = -7046029254386353131  # 0x9E3779B97F4A7C15 as int64
+    vals = torch.where(valid, (pos * mix) ^ (pos >> 7) | 1, 0)
+    loc0 = torch.where(valid, vals.abs() % S, S).to(torch.int32)[..., None]
+    nk0 = valid.sum(1, dtype=torch.int32).expand(B).contiguous()
+    loc, nk = loc0.clone(), nk0.clone()
+    n0 = dedup_planes.launches
+    (got,), got_nk = dedup_planes(vals, [loc], nk, thr, S)
+    (want,), want_nk = dedup_planes_plain(vals, [loc0], nk0, thr, S)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(torch, got, want), max_abs_err(torch, got_nk,
+                                                         want_nk))
+    if err or dedup_planes.launches != n0 + 1:
+        raise AssertionError(f"dedup: max abs err {err}, launches "
+                             f"{dedup_planes.launches - n0}")
+    dropped = int((nk0 - want_nk).sum())
+
+    def run():
+        nk.copy_(nk0)
+        dedup_planes(vals, [loc], nk, thr, S)
+
+    ms = graph_ms(torch, run, mode="relaxed")
+    reset = graph_ms(torch, lambda: nk.copy_(nk0))
+    call = time_ms(torch, run)
+    ms_p = time_ms(torch, lambda: dedup_planes_plain(vals, [loc0], nk0, thr,
+                                                      S))
+    lib = time_ms(torch, lambda: torch.gather(
+        loc0, 1, torch.sort(vals, dim=1)[1][..., None]))
+    n_over = int((nk0 > thr).sum())
+    bd = bound(8 * K * n_over + 8 * B + 4 * dropped)
+    label = f"B={B} K={K} h=1"
+    log(f"phase 3 dedup [{label}] threshold={thr}: exact (max abs err 0, "
+        f"{n_over} rows uniqued, {dropped} windows dropped); kernel "
+        f"{ms:.4f} ms a batch on the card (CUDA graph, with the nk reset "
+        f"of {reset:.4f} ms), {call:.4f} ms one call, plain {ms_p:.3f} ms, "
+        f"torch.sort + gather {lib:.3f} ms, bound {bd[0]:.4f} ms "
+        f"({bd[1]}), kernel / bound {ms / bd[0]:.1f}; launches "
+        f"{dedup_planes.launches - n0}")
+    return [(label, err, ms, ms_p, bd, call, lib)]
 
 
 def time_hash_loc(torch, label, args, outs) -> tuple:
@@ -1034,11 +1102,12 @@ def searched(db: str, out: str, **kwargs) -> dict:
 def plain_kernels():
     """Bind the main paths' kernel calls (K1' of every device search, the
     sketch branch's included; K2' in the dense tail, in screened pass 1
-    and in the object engine's counter; K7' in the dense tail; K5' and K6'
-    in pass 2) to their plain PyTorch versions, so the same paths run
-    without the CUDA kernels."""
+    and in the object engine's counter; K7' in the dense tail; K8' in the
+    dense and screened tails; K5' and K6' in pass 2) to their plain PyTorch
+    versions, so the same paths run without the CUDA kernels."""
     from kmcp_tpu_torch.search import device, device_step, kernel, screen
     from kmcp_tpu_torch.search.count import count_mask_plain
+    from kmcp_tpu_torch.search.dedup import dedup_planes_plain
     from kmcp_tpu_torch.search.group_count import group_count_plain
     from kmcp_tpu_torch.search.hash_loc import hash_loc_plain
     from kmcp_tpu_torch.search.pair_count import pair_count_plain
@@ -1057,6 +1126,8 @@ def plain_kernels():
              (device_step.DenseCompaction, "add",
               device_step.DenseCompaction.add_plain),
              (kernel, "count_mask", count),
+             (device_step, "dedup_planes", dedup_planes_plain),
+             (screen, "dedup_planes", dedup_planes_plain),
              (screen, "pair_count", pair), (screen, "group_count", group)]
     saved = [(obj, name, getattr(obj, name)) for obj, name, _ in binds]
     for obj, name, fn in binds:
@@ -1330,8 +1401,8 @@ def phase_paired(torch, dev, label: str, db: str, r1: str, r2: str,
                              f"{ref['totals']}")
     check_best_hits(run["out"], n_source)
     la, st = run["launches"], run["stats"]
-    want = ["hash_loc", "count_mask"] + (["pair_count"] if screened
-                                         else ["compact"])
+    want = ["hash_loc", "count_mask", "dedup"] + (["pair_count"] if screened
+                                                  else ["compact"])
     if (min(la[n] for n in want) == 0
             or any(la[n] for n in la if n not in want)):
         raise AssertionError(f"{tag}: launches {la}")
@@ -1793,7 +1864,8 @@ def phase_tall(torch, dev, index_s: float, reads: str, pair_files) -> dict:
         screened = name == "screened"
         rows_block = st["rows"] // st["n_blocks"]
         want = ["hash_loc", "count_mask"] + (["pair_count"] if screened
-                                             else ["compact"])
+                                             else ["compact"]) + (
+            ["dedup"] if kind == "pairs" else [])
         ring = ["count_mask/ring"] if not screened else ["pair_count/ring"]
         # pass 1 counts one-word union rows: the gather; nothing else
         # gathers at these widths
@@ -2401,7 +2473,8 @@ def phase_inflight(torch, dev, smi: str, cells: list, wide: tuple,
             peak = torch.cuda.max_memory_allocated(dev)
             la, st = run["launches"], run["stats"]
             kernels = ["hash_loc", "count_mask"] + need.get(
-                st["pass2"] or "", [])
+                st["pass2"] or "", []) + (["dedup"] if "read1" in query
+                                          else [])
             if run["tsv"] != want:
                 raise AssertionError(f"phase 12 {name} depth {depth}: TSV "
                                      "differs from the plain run")
@@ -2724,6 +2797,7 @@ def main() -> int:
     kern = phase_kernels(torch, dev)
     kern.update(phase_pass2(torch, dev))
     kern["compact"] = phase_compact(torch, dev)
+    kern["dedup"] = phase_dedup(torch, dev)
     for name, rows in phase_tall_kernels(torch, dev).items():
         kern[name] += rows
     walls["3 kernels"] = time.time() - t0
@@ -2847,6 +2921,8 @@ def main() -> int:
                         "kmcp_tpu/search/pallas_count.py:823"),
         "compact": ("kmcp_tpu_torch/csrc/compact.cu",
                     "none (XLA: kmcp_tpu/search/device_step.py:97-137)"),
+        "dedup": ("kmcp_tpu_torch/csrc/dedup.cu",
+                  "none (XLA lax.sort: kmcp_tpu/search/device_step.py:458)"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():
@@ -2867,14 +2943,15 @@ def main() -> int:
                    **{p: n[name] for p, n in tall["launches"].items()}}
 
         def timed(r) -> dict:
-            # only K6' has a one-call library counterpart; K1''s ms is the
-            # device time a launch, with the time of one call beside it
+            # only K6' and K8' have library counterparts; K1''s, K7''s
+            # and K8''s ms is the device time a launch or batch, with the
+            # time of one call beside it
             out = {"shape": r[0], "ms": r[2], "plain_ms": r[3],
                    "bound_ms": r[4][0], "bound_by": r[4][1],
                    "library_ms": r[6] if len(r) > 6 else None}
             if r[0] in VARIANT_OF:
                 out["variant"] = VARIANT_OF[r[0]]
-            if name in ("hash_loc", "compact"):
+            if name in ("hash_loc", "compact", "dedup"):
                 out["call_ms"] = r[5]
             if len(r) > 7:  # at the screened tail's padded pair budget
                 out["padded"] = r[7]

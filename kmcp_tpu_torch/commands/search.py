@@ -146,7 +146,7 @@ STAGES = ("pull", "pack", "dispatch", "wait", "retry", "slow", "order",
 def _trace_line(summary: dict, total: int, wall_s: float) -> str:
     """The closing line of a traced search: the streamer's stages in
     microseconds a query, the collector's share of the wall and the bytes
-    each way a query."""
+    each way a query, and the share of queries the dedup uniqued."""
     spans, c = summary["spans"], summary["counters"]
     q = max(total, 1)
     us = " ".join(
@@ -156,7 +156,8 @@ def _trace_line(summary: dict, total: int, wall_s: float) -> str:
     return (f"[search] trace: us/query {us}; gc "
             f"{100 * gc_s / max(wall_s, 1e-9):.2f}% of {wall_s:.3f} s wall; "
             f"h2d {c['h2d_bytes'] / q:.1f} B/query, d2h "
-            f"{c['d2h_bytes'] / q:.1f} B/query")
+            f"{c['d2h_bytes'] / q:.1f} B/query; dedup "
+            f"{c['dedup_reads'] / q:.3f} of queries")
 
 
 def run_search(
@@ -197,8 +198,8 @@ def run_search(
     receives ``trace``: ``trace.summary()`` with the streamer's retries and
     slow rows and the kernels' launches in the run beside its counters;
     with ``verbose`` a closing ``[search] trace:`` line gives the stages'
-    microseconds a query, the collector's share of the wall and the bytes
-    each way a query."""
+    microseconds a query, the collector's share of the wall, the bytes
+    each way a query and the share of queries the dedup uniqued."""
     paired = bool(read1 and read2)
     # the query-FPR cache's size follows the mode (fpr.py)
     opt = dataclasses.replace(opt or SearchOptions(), paired_fpr_buf=paired)

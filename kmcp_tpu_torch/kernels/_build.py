@@ -158,6 +158,14 @@ def load(so: str) -> ctypes.CDLL:
     lib.kmcp_compact.restype = i32
     lib.kmcp_compact_tiles.argtypes = [i64]
     lib.kmcp_compact_tiles.restype = i64
+    ip = ctypes.POINTER(i32)
+    lib.kmcp_dedup.argtypes = [
+        vp, vp, i64, i32, i32, i32, vp, i32, ip, i32, vp, i32, ip, i32, vp,
+        i64, vp, vp,
+    ]
+    lib.kmcp_dedup.restype = i32
+    lib.kmcp_dedup_scratch.argtypes = [i64, i32]
+    lib.kmcp_dedup_scratch.restype = i64
     return lib
 
 

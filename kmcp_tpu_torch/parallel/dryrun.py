@@ -131,8 +131,9 @@ def _rank_main(rank, n_ranks, init, backend, device, timeout_s, work, q):
 # ------------------------------------------------------------- rank work
 
 def kernel_wrappers() -> dict:
-    """The five kernel wrappers by name; each counts its own launches."""
+    """The six kernel wrappers by name; each counts its own launches."""
     from ..search.count import count_mask
+    from ..search.dedup import dedup_planes
     from ..search.device_step import DenseCompaction
     from ..search.group_count import group_count
     from ..search.hash_loc import hash_loc
@@ -140,7 +141,7 @@ def kernel_wrappers() -> dict:
 
     return {"hash_loc": hash_loc, "count_mask": count_mask,
             "pair_count": pair_count, "group_count": group_count,
-            "compact": DenseCompaction}
+            "compact": DenseCompaction, "dedup": dedup_planes}
 
 
 @contextlib.contextmanager

@@ -3,7 +3,8 @@ the ``(meta, aux)`` result layout.
 
 Port of the single-block count tail kmcp_tpu/search/device_step.py:559
 ``_make_count_tail`` (single-end, and with ``in_dedup`` the paired mode
-that uniques each over-threshold read's windows first, search/dedup.py)
+that uniques each over-threshold read's windows first: search/dedup.py,
+K8' on the card)
 and of its compaction, ``_nonzero_asc`` / ``_compact_candidates``
 (:97-137).  The kernels are K2' (search/count.py) and, on the card, K7'
 (``DenseCompaction``, csrc/compact.cu), which compacts K2''s mask words

@@ -57,6 +57,7 @@ import torch
 
 from ..kmer import native
 from ..utils import trace
+from .dedup import take_tally
 from .device import HostDB, TorchDeviceDB, screen_off, two_pass_ready
 from .engine import QueryResult, SearchEngine
 from .tsv import write_results
@@ -252,9 +253,13 @@ class TorchStreamSearcher:
         Batches are flushed as they fill; once ``in_flight`` are pending
         the oldest is drained (its result waited for, retried, ordered and
         written), in order, so idx0, the totals and ``progress`` advance in
-        drain order (stream.py:617-637)."""
+        drain order (stream.py:617-637).  While tracing is on, the dedup's
+        tallies are read once, after the last drain, into the counters
+        ``dedup_reads`` and ``dedup_dropped``."""
         if not usable(self.engine, paired):
             raise ValueError(NOT_STREAMED)
+        if trace.TRACER.on:
+            take_tally()  # what earlier work left
         batch_size = self.batch_size()
         fmt = (_fmt_ratio_memo(), _fmt_ratio_memo(), {})
         total = matched = 0
@@ -281,6 +286,10 @@ class TorchStreamSearcher:
                 drain()
         while pending:
             drain()
+        if trace.TRACER.on:
+            reads, dropped = take_tally()
+            trace.count("dedup_reads", reads)
+            trace.count("dedup_dropped", dropped)
         return total, matched
 
     def _flush(self, batch, batch_size, idx0, paired=False) -> dict:

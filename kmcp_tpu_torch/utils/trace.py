@@ -43,7 +43,8 @@ import torch
 clock = time.perf_counter_ns
 GENERATIONS = 3
 COUNTERS = ("batches", "queries", "tsv_rows", "h2d_bytes", "d2h_bytes",
-            "compact_launches")
+            "compact_launches", "dedup_launches", "dedup_reads",
+            "dedup_dropped")
 
 
 def env_on() -> bool:

@@ -8,7 +8,10 @@ at ragged S_pad and T, partial and padding tiles, multiplicity 256,
 sentinel-only reads, FLOOR_NEVER floors, bit 31 and two sweeps; K1''s
 value plane at single-end and paired row lengths, every modulus path and
 rows too long to stage in shared memory), the count and screened tails,
-single-end and paired (in_dedup), K7' (the dense tail's compaction) on
+single-end and paired (in_dedup), K8' (the paired dedup) at K = 300 and
+past its shared-memory table, one or two planes, per-column sentinels,
+rows at, under and one over the threshold, one repeated value and no
+valid window, K7' (the dense tail's compaction) on
 narrow and wide masks, empty and full, in one read chunk or many and at
 budgets on both sides of the total, a sketch DB's window selection after
 K1' and the object engine's TorchBlockCounter (K2' on short, wide, folded
@@ -30,6 +33,11 @@ import pytest
 import torch
 
 from kmcp_tpu_torch.search.count import count_mask, count_mask_plain
+from kmcp_tpu_torch.search.dedup import (
+    dedup_planes,
+    dedup_planes_plain,
+    take_tally,
+)
 from kmcp_tpu_torch.search.device import _copy_async
 from kmcp_tpu_torch.search.device_step import (
     FLOOR_NEVER,
@@ -551,6 +559,84 @@ def test_count_tail_in_dedup_cuda_matches_cpu(cuda):
     assert outs[0][0][0] > 0
     np.testing.assert_array_equal(outs[0][0], outs[1][0])
     np.testing.assert_array_equal(outs[0][1], outs[1][1])
+
+
+# (B, K, thr, planes): each plane's h, its sentinels (None: one a plane)
+@pytest.mark.parametrize("B,K,thr,planes", [
+    (700, 300, 256, [(1, None)]),
+    (500, 300, 256, [(0, None), (0, None)]),
+    (300, 300, 256, [(3, (7, 8, 9))]),
+    (333, 140, 30, [(2, None), (0, None)]),
+    (300, 4100, 3000, [(1, None)]),
+    (5, 9000, 100, [(0, None), (1, None)]),
+])
+def test_dedup_kernel_matches_plain(cuda, B, K, thr, planes):
+    """K8' (``dedup_planes`` on the card, in place) writes the plain
+    version's planes and nk window for window, and tallies the same rows
+    uniqued and windows dropped: rows from a small pool of values (signed
+    int64, 15% invalid), every third cut to thr windows or under, row 0
+    one repeated value, row 1 no valid window (nk set past the
+    threshold), row 2 exactly thr + 1 windows, the last row exactly thr;
+    rows at and under the threshold come back bit-identical.  K past
+    4,096 takes the global table; one launch a call."""
+    from kmcp_tpu_torch.utils import trace
+
+    rng = np.random.default_rng(B + K)
+    pool = rng.integers(-2**63, 2**63 - 1, 60, dtype=np.int64)
+    pool[pool == 0] = 1
+    pick = rng.integers(0, 60, (B, K))
+    pick[0] = 0
+    invalid = rng.random((B, K)) < 0.15
+    cut = rng.integers(thr // 2, thr + 1, B)
+    invalid |= ((np.arange(B)[:, None] % 3 == 2)
+                & (np.arange(K) >= cut[:, None]))
+    invalid[0] = False
+    invalid[1] = True
+    invalid[2] = np.arange(K) > thr
+    invalid[-1] = np.arange(K) >= thr
+    vals = np.where(invalid, 0, pool[pick])
+    nk = (~invalid).sum(axis=1).astype(np.int32)
+    nk[1] = thr + 5
+    locs, sents = [], []
+    for j, (h, s) in enumerate(planes):
+        m = 1000 + j
+        loc = (pick[..., None] * (j + 3) + np.arange(max(h, 1))) % m
+        loc[invalid] = m
+        locs.append(loc.astype(np.int32) if h else loc[..., 0]
+                    .astype(np.int32))
+        sents.append(list(s) if s else m)
+    assert nk[2] == thr + 1 and nk[-1] == thr and (nk <= thr).sum() >= B // 5
+    cpu = [torch.from_numpy(np.ascontiguousarray(a)) for a in (vals, nk)]
+    cpu_locs = [torch.from_numpy(np.ascontiguousarray(a)) for a in locs]
+    dev = [t.to(cuda) for t in cpu]
+    dev_locs = [t.to(cuda) for t in cpu_locs]
+    trace.enable()
+    try:
+        take_tally()
+        want, want_nk = dedup_planes_plain(*cpu[:1], cpu_locs, cpu[1], thr,
+                                           sents)
+        want_tally = take_tally()
+        n0 = dedup_planes.launches
+        got, got_nk = dedup_planes(dev[0], dev_locs, dev[1], thr, sents)
+        assert dedup_planes.launches == n0 + 1
+        launches = trace.summary()["counters"]["dedup_launches"]
+        got_tally = take_tally()
+    finally:
+        trace.disable()
+        trace.reset()
+    torch.cuda.synchronize()
+    assert launches == 1
+    assert got_nk is dev[1] and all(g is d for g, d in zip(got, dev_locs))
+    assert torch.equal(got_nk.cpu(), want_nk)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert got_tally == want_tally
+    assert want_tally[0] == int((nk > thr).sum()) and want_tally[1] > 0
+    assert int(want_nk[0]) == 1 and int(want_nk[1]) == thr + 5
+    under = torch.from_numpy(nk <= thr)
+    assert torch.equal(got_nk.cpu()[under], cpu[1][under])
+    for g, c in zip(got, cpu_locs):
+        assert torch.equal(g.cpu()[under], c[under])
 
 
 def _compaction_inputs(rng, B, W, density):

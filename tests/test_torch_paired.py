@@ -4,7 +4,9 @@
 - the in-step k-mer dedup (kmcp_tpu_torch/search/dedup.py) against
   ``_dedup_value_planes`` on value pools dense in duplicates, per-plane
   sentinels, as per-read multisets of locations (window order within a read
-  is free) and unique counts;
+  is free) and unique counts, its traced tally of rows uniqued and windows
+  dropped against a numpy count, and window by window against a numpy
+  loop that keeps each value's first window;
 - the dense tail ``count_tail(in_dedup=True)`` against ``_make_count_tail``
   with value planes (1 and 3 hashes); the screened tail's counterpart is in
   test_torch_screen.py, beside the interpret-mode pair kernel it shares;
@@ -35,9 +37,10 @@ from kmcp_tpu.search.stream import StreamSearcher
 from kmcp_tpu.search.tsv import write_results
 from kmcp_tpu_torch.commands.search import run_search
 from kmcp_tpu_torch.search import engine as port_engine
-from kmcp_tpu_torch.search.dedup import dedup_planes
+from kmcp_tpu_torch.search.dedup import dedup_planes, take_tally
 from kmcp_tpu_torch.search.device_step import count_tail, target_floor
 from kmcp_tpu_torch.search.stream import TorchStreamSearcher
+from kmcp_tpu_torch.utils import trace
 
 from .test_torch_screen_stream import screened_db, uneven_genomes
 from .test_torch_stream import build_db, random_genomes
@@ -75,10 +78,20 @@ def joined_values(vhi, vlo) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(v.T).view(np.int64))
 
 
+def numpy_dedup_counts(vhi, vlo, nk, thr) -> tuple[int, int]:
+    """(reads over thr, their windows that repeat an earlier non-zero
+    value) of value_pool's data, counted in numpy."""
+    v = ((vhi.astype(np.uint64) << np.uint64(32)) | vlo.astype(np.uint64)).T
+    over = v[nk > thr]
+    dropped = sum(int((r != 0).sum()) - len(np.unique(r[r != 0]))
+                  for r in over)
+    return len(over), dropped
+
+
 def test_dedup_matches_jax():
     """Two [B, K] planes with their own sentinels and one [B, K, 3] plane:
     per read, the multiset of locations and the unique count equal
-    _dedup_value_planes'."""
+    _dedup_value_planes'; the tally, traced, equals a numpy count."""
     rng = np.random.default_rng(5)
     K, B, thr = 40, 96, 12
     mods = (251, 4099, 97, 98, 99)
@@ -90,9 +103,17 @@ def test_dedup_matches_jax():
     planes = [as_t(locs[0]), as_t(locs[1]),
               torch.from_numpy(np.ascontiguousarray(
                   np.stack(locs[2:], axis=-1).transpose(1, 0, 2)))]
-    got, got_nk = dedup_planes(joined_values(vhi, vlo), planes,
-                               torch.from_numpy(nk), thr,
-                               [mods[0], mods[1], torch.tensor(mods[2:])])
+    trace.enable()
+    try:
+        got, got_nk = dedup_planes(joined_values(vhi, vlo), planes,
+                                   torch.from_numpy(nk), thr,
+                                   [mods[0], mods[1], torch.tensor(mods[2:])])
+        tally = take_tally()
+    finally:
+        trace.disable()
+        trace.reset()
+    assert tally == numpy_dedup_counts(vhi, vlo, nk, thr)
+    assert tally[1] == int((nk - got_nk.numpy()).sum()) > 0
     np.testing.assert_array_equal(got_nk.numpy(), np.asarray(want_nk))
     assert (got_nk.numpy() < nk).sum() > B // 4  # the dedup bit
     assert (nk[::2] <= thr).all()  # and half the reads kept duplicates
@@ -103,6 +124,36 @@ def test_dedup_matches_jax():
         assert g.dtype == np.int32
         for b in range(B):
             assert sorted(g[b].tolist()) == sorted(w[b].tolist()), (p, b)
+
+
+@pytest.mark.parametrize("h,n_pool", [(1, 9), (3, 9), (1, 1000)])
+def test_dedup_keeps_each_first_window(h, n_pool):
+    """Window by window, against a numpy loop: in a read over the
+    threshold each value's first window keeps its locations and every
+    later copy takes the sentinel (per column); other reads come back
+    unchanged; nk drops by the copies.  Untraced, nothing is tallied."""
+    rng = np.random.default_rng(3 + h + n_pool)
+    K, B, thr = 50, 64, 20
+    mods = [101 + j for j in range(h)]
+    vhi, vlo, locs, nk = value_pool(rng, K, B, n_pool, mods, thr)
+    loc = np.ascontiguousarray(np.stack(locs, axis=-1).transpose(1, 0, 2))
+    v = ((vhi.astype(np.uint64) << np.uint64(32)) | vlo.astype(np.uint64)).T
+    want, want_nk = loc.copy(), nk.copy()
+    for b in np.nonzero(nk > thr)[0]:
+        seen = set()
+        for i, x in enumerate(v[b].tolist()):
+            if x and x in seen:
+                want[b, i] = mods
+                want_nk[b] -= 1
+            seen.add(x)
+    (got,), got_nk = dedup_planes(joined_values(vhi, vlo),
+                                  [torch.from_numpy(loc)],
+                                  torch.from_numpy(nk), thr,
+                                  [torch.tensor(mods)])
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got_nk.numpy(), want_nk)
+    assert (want_nk < nk).sum() > (B // 8 if n_pool < K else 0)
+    assert take_tally() == (0, 0)
 
 
 @pytest.mark.parametrize("h", [1, 3])

@@ -2,9 +2,10 @@
 default and free while off; while on, one pull, flush and drain span a
 batch with their stages nested inside and carrying the batch's id, the
 device ranges inside the dispatch that issued them, byte counters equal to
-the copied tensors' sizes, the collector's runs as ``gc`` spans, the same
-names in a ``torch.profiler`` trace, the TSV unchanged, and ``run_search``
-exporting the summary."""
+the copied tensors' sizes, the dedup's counters (the pairs over the
+threshold on the ``pe`` route, nothing elsewhere), the collector's runs as
+``gc`` spans, the same names in a ``torch.profiler`` trace, the TSV
+unchanged, and ``run_search`` exporting the summary."""
 
 import gc
 import io
@@ -127,6 +128,13 @@ def test_spans_nest_by_batch_and_tsv_is_unchanged(world, monkeypatch, route):
     assert c["batches"] == len(batches)
     assert c["queries"] == len(queries(world, ROUTES[route][0]))
     assert c["tsv_rows"] == traced.count("\n")
+    # the plain dedup on the CPU: no K8' launch; rows over 256 windows of
+    # 21-mers (the joined row's N breaks a window) are uniqued
+    over = sum(max(len(q[1]) - 20, 0) + max(len(q[2]) - 20, 0) > 256
+               for q in queries(world, True)) if route == "pe" else 0
+    assert c["dedup_launches"] == 0
+    assert c["dedup_reads"] == over and (over > 100) == (route == "pe")
+    assert (c["dedup_dropped"] > 0) == (route == "pe")
 
 
 @pytest.mark.parametrize("route", ["se", "pe", "host-hash"])
@@ -242,10 +250,13 @@ def test_run_search_exports_the_summary(world, tmp_path, monkeypatch,
     assert c["retries"] == stats["retries"]
     assert c["slow_rows"] == stats["slow_rows"] > 0
     assert set(c["launches"]) == {"hash_loc", "count_mask", "pair_count",
-                                  "group_count", "compact"}
-    assert c["compact_launches"] == 0  # the CPU takes the plain version
+                                  "group_count", "compact", "dedup"}
+    # the CPU takes the plain versions; single reads are never uniqued
+    assert c["compact_launches"] == c["dedup_launches"] == 0
+    assert c["dedup_reads"] == c["dedup_dropped"] == 0
     assert (tmp_path / "a.tsv").read_bytes() == \
         (tmp_path / "b.tsv").read_bytes()
     line = capsys.readouterr().err.strip().splitlines()[-1]
     assert line.startswith("[search] trace: us/query pull ")
     assert "B/query" in line and "% of" in line
+    assert line.endswith("; dedup 0.000 of queries")
